@@ -17,7 +17,15 @@ Phases (any failure raises and the exit code is non-zero):
   5. e2e     -- a 16M-point PLY through the port's CLI
                 (cli.build_octree --use_device) on the card, byte-compared
                 with the same CLI run with --device cpu; per-phase times and
-                the main path's kernel launch counts.
+                the main path's kernel launch counts;
+  6. cull    -- the viewer's device cull: a. K5 against its plain version
+                on a 1,048,576-node table (partial view, all visible, > 32
+                axes, K = 0, a 64-frame batch), bit for bit, with CUDA-event
+                medians; b. DeviceCullSession.step / step_frames on the card
+                against device="cpu" over that table and phase 5's octree,
+                60 orbit frames, bit for bit; c. the port's viewer CLI
+                (cli.view --device_cull --frames 60) on phase 5's octree:
+                K5 launches, visible nodes, a decodable final PNG.
 
 The CPU route itself is held to the JAX package by tests/test_torch_*.py.
 The line before the last is a JSON object {"kernels": [...]}; the last is
@@ -44,6 +52,9 @@ import numpy as np
 SIZES = (16_000_017, 64_000_017)     # phase 3: ragged element counts
 CORE_SIZES = (16_000_000, 64_000_000)  # phase 4: synthetic codes
 E2E_POINTS = 16_000_000              # phase 5: the README's in-core cloud
+CULL_NODES = 1_048_576               # phase 6: bench.py's 1M-node tree
+CULL_BATCH = 64                      # phase 6a: bench.py's batched orbit
+VIEW_FRAMES = 60                     # phase 6b/c: cli.view's default orbit
 DEPTH = 21                           # the 63-bit code budget
 REPS = 5                             # timed repetitions (median reported)
 DEVICE = "cuda"
@@ -316,51 +327,386 @@ def run_cli(args: list, phase_times: dict) -> str:
     return out
 
 
-def phase_e2e(wrappers: dict) -> dict:
+def phase_e2e(wrappers: dict, tmp: str) -> tuple:
     """16M points through the CLI on the card, held byte for byte against
-    the CLI with --device cpu; returns the main path's launch counts."""
-    tmp = tempfile.mkdtemp(prefix="pcv_chip_smoke_")
-    try:
-        ply = os.path.join(tmp, "cloud.ply")
-        a_dir = os.path.join(tmp, "card")
-        b_dir = os.path.join(tmp, "cpu")
-        t0 = time.perf_counter()
-        write_ply(ply, E2E_POINTS, seed=5)
-        log(f"e2e: wrote {E2E_POINTS} points ({os.path.getsize(ply)} B) in "
-            f"{time.perf_counter() - t0:.3f} s")
+    the CLI with --device cpu; returns the main path's launch counts and
+    the card's octree directory (under tmp, kept for phase 6)."""
+    ply = os.path.join(tmp, "cloud.ply")
+    a_dir = os.path.join(tmp, "card")
+    b_dir = os.path.join(tmp, "cpu")
+    t0 = time.perf_counter()
+    write_ply(ply, E2E_POINTS, seed=5)
+    log(f"e2e: wrote {E2E_POINTS} points ({os.path.getsize(ply)} B) in "
+        f"{time.perf_counter() - t0:.3f} s")
 
-        for w in wrappers.values():
-            w.launches = 0
-        phases = {}
-        t0 = time.perf_counter()
-        out = run_cli([ply, "--output_directory", a_dir, "--use_device"],
-                      phases)
-        wall = time.perf_counter() - t0
-        launches = {k: w.launches for k, w in wrappers.items()}
-        log(f"e2e: port CLI build on the card {wall:.3f} s; phases (s) "
-            f"{json.dumps(phases)}; launches {json.dumps(launches)}")
-        log("e2e: cli said: " + out.strip().splitlines()[0])
-        said = re.search(r"Built octree with (\d+) points in (\d+) nodes",
-                         out)
-        if not said or int(said.group(1)) != E2E_POINTS:
-            raise AssertionError(f"cli output does not report {E2E_POINTS} "
-                                 f"points: {out}")
+    for w in wrappers.values():
+        w.launches = 0
+    phases = {}
+    t0 = time.perf_counter()
+    out = run_cli([ply, "--output_directory", a_dir, "--use_device"],
+                  phases)
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    log(f"e2e: port CLI build on the card {wall:.3f} s; phases (s) "
+        f"{json.dumps(phases)}; launches {json.dumps(launches)}")
+    log("e2e: cli said: " + out.strip().splitlines()[0])
+    said = re.search(r"Built octree with (\d+) points in (\d+) nodes",
+                     out)
+    if not said or int(said.group(1)) != E2E_POINTS:
+        raise AssertionError(f"cli output does not report {E2E_POINTS} "
+                             f"points: {out}")
 
+    t0 = time.perf_counter()
+    run_cli([ply, "--output_directory", b_dir, "--use_device",
+             "--device", "cpu"], {})
+    log(f"e2e: port CLI build with --device cpu "
+        f"{time.perf_counter() - t0:.3f} s")
+    files = dirs_byte_equal(a_dir, b_dir)
+    log(f"e2e: card == CPU route, {files} files byte-equal; "
+        f"{said.group(2)} nodes hold all {E2E_POINTS} points")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: "
+                             f"{missing}")
+    os.remove(ply)
+    shutil.rmtree(b_dir)
+    return launches, a_dir
+
+# --- phase 6: the viewer's device cull ------------------------------------
+
+
+def synthetic_node_table(k: int, seed: int):
+    """A valid k-node octree table by the recipe of the JAX package's 1M-node
+    tree (bench.py:664-697): every node down to level 6, then k - 299,593
+    distinct random level-7 nodes; root cube [0, 1024]^3, 10 points a node.
+    A cube follows its path's octal digits root first, x/y/z from bits
+    2/1/0 of each digit.  -> mins (k, 3) f64, edges (k,) f64, num_points
+    (k,) int64, as an octree holds them."""
+    rng = np.random.default_rng(seed)
+    per_level = [np.arange(8**level, dtype=np.int64) for level in range(7)]
+    n7 = k - sum(len(p) for p in per_level)
+    per_level.append(np.sort(rng.choice(8**7, size=n7, replace=False)))
+    mins, edges = [], []
+    for level, paths in enumerate(per_level):
+        lo = np.zeros((len(paths), 3))
+        for d in range(1, level + 1):
+            digit = (paths >> (3 * (level - d))) & 7
+            bits = np.stack([(digit >> 2) & 1, (digit >> 1) & 1, digit & 1],
+                            axis=1)
+            lo += bits * (1024.0 / 2**d)
+        mins.append(lo)
+        edges.append(np.full(len(paths), 1024.0 / 2**level))
+    return (np.concatenate(mins), np.concatenate(edges),
+            np.full(k, 10, dtype=np.int64))
+
+
+def cull_frusta(C) -> dict:
+    """The frusta of phase 6a, built through the port's culling module."""
+    partial = C.Frustum.new(  # bench.py:711-713
+        C.Isometry.from_axis_angle([0, 1, 0], 0.3,
+                                   translation=[200.0, 200.0, 400.0]),
+        C.Perspective.from_fov(1.0, 0.7, 1.0, 500.0))
+    everything = C.Frustum.new(  # bench.py:715-719
+        C.Isometry.from_axis_angle([0, 1, 0], 0.0,
+                                   translation=[512.0, 512.0, 4000.0]),
+        C.Perspective.from_fov(1.2, 1.0, 1.0, 10000.0))
+    # An off-axis projection: 26 separating axes instead of 16.
+    eye = C.Isometry.from_axis_angle([1, 1, 0], 0.7,
+                                     translation=[300.0, 200.0, 900.0])
+    proj = C.Perspective.from_fov(1.0, 0.7, 1.0, 2000.0).matrix.copy()
+    proj[0, 2], proj[1, 2] = 0.3, -0.2
+    off_axis = C.Frustum.from_matrix4(proj @ eye.inverse().to_matrix4())
+    orbit = [  # bench.py:628-636
+        C.Frustum.new(
+            C.Isometry.from_axis_angle([0, 1, 0], 0.4 + ang,
+                                       translation=[60.0, 45.0, 260.0]),
+            C.Perspective.from_fov(1.5, 1.2, 0.5, 1000.0))
+        for ang in np.linspace(0, 0.2, CULL_BATCH)
+    ]
+    return {"partial": partial, "all": everything, "off_axis": off_axis,
+            "orbit": orbit}
+
+
+def f32_err(a, b) -> float:
+    """max |a - b| where a and b differ; 0.0 when they are equal bit for
+    bit (NaN matching NaN, -0 matching +0)."""
+    import torch
+
+    if a.shape != b.shape:
+        raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    a, b = a.float(), b.float()
+    differ = ~((a == b) | (a.isnan() & b.isnan()))
+    if not bool(differ.any()):
+        return 0.0
+    return float((a[differ] - b[differ]).abs().nan_to_num(
+        nan=float("inf")).max())
+
+
+def phase_cull_kernel(record: dict) -> tuple:
+    """6a: K5 against its plain version on the card at CULL_NODES nodes,
+    bit for bit; returns the node table (mins, edges, num_points)."""
+    import torch
+
+    from point_cloud_viewer_tpu_torch.ops import cull_cuda as CC
+    from point_cloud_viewer_tpu_torch.ops import culling as C
+
+    dev = torch.device(DEVICE)
+    mins, edges, num_points = synthetic_node_table(CULL_NODES, seed=5)
+    table = [torch.from_numpy(a).to(dev) for a in
+             (mins.astype(np.float32), edges.astype(np.float32),
+              num_points.astype(np.int32))]
+    frusta = cull_frusta(C)
+
+    def frame(frustum, a_cap):
+        axes, qmin, qmax = C.frustum_axes_and_projections(frustum)
+        padded = C.pad_cull_axes(axes, qmin, qmax, a_cap)
+        arrays = (frustum.clip_from_query.astype(np.float32), *padded)
+        return [torch.from_numpy(a).to(dev) for a in arrays], len(axes)
+
+    # The session's growth rule (culling.py:220-224) past K5's 32 axes.
+    grown = C.DeviceCullSession(mins, edges, num_points, axis_capacity=8,
+                                device=dev)
+    grown.step(frusta["off_axis"])
+    off_axis, n_axes = frame(frusta["off_axis"], grown.a_cap)
+    if not grown.a_cap > 32:
+        raise AssertionError(f"a_cap {grown.a_cap} <= 32 ({n_axes} axes)")
+    mats, axs, qns, qxs = C.prep_frustum_frames(frusta["orbit"], 32)
+    batch = [torch.from_numpy(a).to(dev) for a in (mats, axs, qns, qxs)]
+    cases = {
+        "partial": (frame(frusta["partial"], 32)[0], table),
+        "all visible": (frame(frusta["all"], 32)[0], table),
+        f"off-axis, {grown.a_cap} axes": (off_axis, table),
+        "K = 0": (frame(frusta["partial"], 32)[0],
+                  [t[:0] for t in table]),
+        f"{CULL_BATCH} frames": (batch, table),
+    }
+    for name, (per_frame, nodes) in cases.items():
+        before = CC.cull_lod.launches
+        got = CC.cull_lod(*per_frame, *nodes)
+        torch.cuda.synchronize()
+        launched = CC.cull_lod.launches - before
+        want = CC.cull_lod_plain(*per_frame, *nodes)
+        errs = [f32_err(g, w) for g, w in zip(got, want)]
+        visible = int(got[1].sum())
+        log(f"K5 cull_lod {name}: K={nodes[0].shape[0]}, shape "
+            f"{tuple(got[0].shape)}, axes {per_frame[1].shape[-2]}, "
+            f"visible {visible}, launches {launched}, max_abs_err "
+            f"(sizes, visible, priority) {errs}")
+        record["K5"]["err"] = max(record["K5"]["err"], *errs)
+        if any(errs) or launched != (1 if nodes[0].shape[0] else 0):
+            raise AssertionError(f"K5 {name}: errors {errs}, launches "
+                                 f"{launched}")
+        if name == "all visible" and visible != CULL_NODES:
+            raise AssertionError(f"K5 all visible: {visible} visible")
+        if name == "partial" and not 0 < visible < CULL_NODES:
+            raise AssertionError(f"K5 partial view: {visible} visible")
+
+    times = {}
+    for name in ("partial", f"{CULL_BATCH} frames"):
+        per_frame, nodes = cases[name]
+        times[name] = (cuda_ms(lambda: CC.cull_lod(*per_frame, *nodes)),
+                       cuda_ms(lambda: CC.cull_lod_plain(*per_frame, *nodes)))
+        log(f"K5 {name} at K={CULL_NODES}: kernel {times[name][0]:.4f} ms, "
+            f"plain {times[name][1]:.4f} ms")
+    record["K5"]["times"] = times
+    return mins, edges, num_points
+
+
+def orbit_matrices(center, diag, frames, width, height) -> list:
+    """The camera matrices of run_headless's orbit (render_loop.py:428-438),
+    through the port's viewer module."""
+    from point_cloud_viewer_tpu_torch.viewer.render_loop import Camera
+
+    camera = Camera(width, height)
+    out = []
+    for frame in range(frames):
+        angle = 2 * np.pi * frame / frames
+        camera.position = center + diag * np.array(
+            [np.cos(angle), np.sin(angle), 0.5])
+        camera.theta = angle + np.pi / 2
+        camera.phi = np.pi / 3
+        camera.moved = True
+        camera.update(1 / 60)
+        out.append(camera.world_to_gl())
+    return out
+
+
+def session_card_vs_cpu(name, mins, edges, num_points, center, diag):
+    """DeviceCullSession on the card against device="cpu" over the orbit
+    of run_headless: every frame of step and the one step_frames call
+    against the CPU route's step_frames (which the CPU tests hold
+    bit-equal to its step), bit for bit.  Per-frame host clock of step as
+    the renderer calls it (each result dropped before the next frame; kept
+    results would add first-touch page faults of fresh host memory);
+    returns the frusta and the card's session."""
+    import torch
+
+    from point_cloud_viewer_tpu_torch.ops import culling as C
+
+    frusta = [C.Frustum.from_matrix4(m) for m in
+              orbit_matrices(center, diag, VIEW_FRAMES, 1280, 720)]
+    card = C.DeviceCullSession(mins, edges, num_points, device=DEVICE)
+    card.step(frusta[0])
+    torch.cuda.synchronize()
+    secs = []
+    for f in frusta:
         t0 = time.perf_counter()
-        run_cli([ply, "--output_directory", b_dir, "--use_device",
-                 "--device", "cpu"], {})
-        log(f"e2e: port CLI build with --device cpu "
-            f"{time.perf_counter() - t0:.3f} s")
-        files = dirs_byte_equal(a_dir, b_dir)
-        log(f"e2e: card == CPU route, {files} files byte-equal; "
-            f"{said.group(2)} nodes hold all {E2E_POINTS} points")
-        missing = [k for k, v in launches.items() if v <= 0]
-        if missing:
-            raise AssertionError(f"kernels not launched on the main path: "
-                                 f"{missing}")
-        return launches
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        card.step(f)
+        secs.append(time.perf_counter() - t0)
+    steps = [card.step(f) for f in frusta]
+    t0 = time.perf_counter()
+    batch = card.step_frames(frusta)
+    batch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = C.DeviceCullSession(mins, edges, num_points,
+                              device="cpu").step_frames(frusta)
+    cpu_s = time.perf_counter() - t0
+    bad = []
+    for i, one in enumerate(steps):
+        for field, got, b, want in zip(("order", "sizes", "visible"), one,
+                                       batch, ref):
+            for label, a in (("step", got), ("step_frames", b[i])):
+                if f32_err(torch.from_numpy(np.asarray(a)),
+                           torch.from_numpy(np.asarray(want[i]))):
+                    bad.append(f"frame {i} {label} {field}")
+    counts = [int(v.sum()) for v in ref[2]]
+    log(f"session {name}: K={len(edges)}, {VIEW_FRAMES} orbit frames; card "
+        f"step median {statistics.median(secs) * 1e3:.3f} ms/frame (min "
+        f"{min(secs) * 1e3:.3f}, max {max(secs) * 1e3:.3f}); step_frames "
+        f"{batch_s * 1e3 / VIEW_FRAMES:.3f} ms/frame (results kept); CPU "
+        f"route step_frames {cpu_s:.3f} s; visible per frame min "
+        f"{min(counts)} median {int(statistics.median(counts))} max "
+        f"{max(counts)}; a_cap {card.a_cap}; card == CPU route: {not bad}")
+    if bad:
+        raise AssertionError(f"session {name}: card differs from the CPU "
+                             f"route at {bad[:10]} ({len(bad)} in all)")
+    if max(counts) == 0:
+        raise AssertionError(f"session {name}: no frame sees a node")
+    return frusta, card
+
+
+def session_split(frusta, card) -> None:
+    """Where one step's time goes (culling.py DeviceCullSession.step,
+    piece by piece, host clock with a sync after each), median over the
+    orbit, plus CUDA-event times of the kernel and the sort."""
+    import torch
+
+    from point_cloud_viewer_tpu_torch.ops import cull_cuda as CC
+    from point_cloud_viewer_tpu_torch.ops import culling as C
+
+    table = (card._mins, card._edges, card._num_points)
+    parts = {"host prep": [], "upload": [], "kernel": [], "sort": [],
+             "fetch": []}
+    for f in frusta:
+        t0 = time.perf_counter()
+        padded = card._pad(*C.frustum_axes_and_projections(f))
+        t1 = time.perf_counter()
+        args = [card._put(a) for a in
+                (f.clip_from_query.astype(np.float32), *padded)]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        sizes, visible, priority = CC.cull_lod(*args, *table)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        order = torch.sort(-priority, stable=True).indices.to(torch.int32)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for t in (order, sizes, visible):
+            t.cpu().numpy()
+        t5 = time.perf_counter()
+        for key, a, b in zip(parts, (t0, t1, t2, t3, t4), (t1, t2, t3, t4,
+                                                           t5)):
+            parts[key].append(b - a)
+    kernel_ms = cuda_ms(lambda: CC.cull_lod(*args, *table))
+    sort_ms = cuda_ms(lambda: torch.sort(-priority, stable=True))
+    log("session split, 1M table, orbit medians (host clock, ms): "
+        + ", ".join(f"{k} {statistics.median(v) * 1e3:.4f}"
+                    for k, v in parts.items())
+        + f"; last frame by CUDA events: kernel {kernel_ms:.4f} ms, sort "
+        f"{sort_ms:.4f} ms")
+
+
+def phase_cull_session(octree_dir: str, table) -> None:
+    """6b: the session on the card against the CPU route, over the 1M-node
+    table and phase 5's octree; the split of one step on the card."""
+    from point_cloud_viewer_tpu_torch.viewer.render_loop import Octree
+
+    mins, edges, num_points = table
+    frusta, card = session_card_vs_cpu(
+        "1M table", mins, edges, num_points, np.full(3, 512.0),
+        1024.0 * np.sqrt(3.0))
+    session_split(frusta, card)
+    octree = Octree.from_directory(octree_dir)
+    box = octree.bounding_box
+    session_card_vs_cpu("phase 5 octree", octree.cube_mins,
+                        octree.cube_edges, octree.num_points, box.center(),
+                        float(np.linalg.norm(box.diag())))
+
+
+def decode_png(path: str) -> np.ndarray:
+    """An 8-bit RGBA PNG whose rows use filter 0 (what the port's viewer
+    writes) -> (H, W, 4) u8, checking every chunk's CRC."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        kind = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
+            raise AssertionError(f"{path}: bad CRC in {kind!r}")
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + length
+    width, height, depth, color = header[:4]
+    if (depth, color) != (8, 6):
+        raise AssertionError(f"{path}: not 8-bit RGBA ({depth}, {color})")
+    rows = np.frombuffer(zlib.decompress(idat), dtype=np.uint8).reshape(
+        height, 1 + 4 * width)
+    if rows[:, 0].any():
+        raise AssertionError(f"{path}: a row uses a filter other than 0")
+    return rows[:, 1:].reshape(height, width, 4)
+
+
+def phase_view(octree_dir: str, tmp: str) -> int:
+    """6c: the port's viewer CLI with --device_cull on the card over phase
+    5's octree; returns K5's launches in that run."""
+    from point_cloud_viewer_tpu_torch.cli.view import main as view_main
+    from point_cloud_viewer_tpu_torch.ops import cull_cuda as CC
+
+    shot = os.path.join(tmp, "view.png")
+    buf = io.StringIO()
+    CC.cull_lod.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = view_main([octree_dir, "--device_cull", "--device", DEVICE,
+                        "--frames", str(VIEW_FRAMES), "--screenshot", shot])
+    wall = time.perf_counter() - t0
+    launches = CC.cull_lod.launches
+    out = buf.getvalue().strip()
+    log(f"view: cli.view --device_cull --frames {VIEW_FRAMES} on the card: "
+        f"rc {rc}, {wall:.3f} s, K5 launches {launches}; cli said: {out}")
+    said = re.search(r"Final frame: (\d+)/(\d+) nodes, (\d+) points", out)
+    if rc != 0 or not said or int(said.group(2)) <= 0:
+        raise AssertionError(f"view: rc {rc}, output {out!r}")
+    if launches <= 0:
+        raise AssertionError("view: K5 was not launched")
+    image = decode_png(shot)
+    painted = int((image != np.array([17, 17, 20, 255], np.uint8))
+                  .any(axis=2).sum())
+    log(f"view: final frame {image.shape[1]}x{image.shape[0]} RGBA, "
+        f"{painted} non-background pixels")
+    if painted <= 0:
+        raise AssertionError("view: the final frame is all background")
+    return launches
 
 
 def main() -> int:
@@ -371,6 +717,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from point_cloud_viewer_tpu_torch.ops import _ext
+    from point_cloud_viewer_tpu_torch.ops import cull_cuda as CC
     from point_cloud_viewer_tpu_torch.ops import level_cuda as LC
     from point_cloud_viewer_tpu_torch.ops import scan_cuda as SC
 
@@ -401,18 +748,32 @@ def main() -> int:
         "K4": ("promote_pass", LC.promote_pass,
                "point_cloud_viewer_tpu_torch/csrc/level.cu",
                "point_cloud_viewer_tpu/ops/level_pallas.py:203"),
+        "K5": ("cull_lod", CC.cull_lod,
+               "point_cloud_viewer_tpu_torch/csrc/cull.cu",
+               "point_cloud_viewer_tpu/ops/culling_pallas.py:81"),
     }
     record = {k: {"err": 0, "times": {}} for k in kernels}
     phase_kernels(record)
     phase_core()
-    launches = phase_e2e({k: v[1] for k, v in kernels.items()})
+    tmp = tempfile.mkdtemp(prefix="pcv_chip_smoke_")
+    try:
+        launches, octree_dir = phase_e2e(
+            {k: v[1] for k, v in kernels.items() if k != "K5"}, tmp)
+        table = phase_cull_kernel(record)
+        phase_cull_session(octree_dir, table)
+        launches["K5"] = phase_view(octree_dir, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
-    n_main = SIZES[0]
+    def times(k):
+        if k == "K5":  # one frame, partial view, CULL_NODES nodes
+            return record[k]["times"]["partial"]
+        return record[k]["times"][SIZES[0]]
+
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": record[k]["err"],
-         "ms": record[k]["times"][n_main][0],
-         "plain_ms": record[k]["times"][n_main][1]}
+         "ms": times(k)[0], "plain_ms": times(k)[1]}
         for k, (name, _, src, rep) in kernels.items()
     ]}
     log(f"total {time.perf_counter() - t_start:.3f} s; card: {smi}")

@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels (csrc/*.cu).
 
-The sources are compiled by `nvcc` for Hopper (sm_90a) into one shared
-library with a plain C interface, on first use, and loaded with ctypes.
+The sources are compiled by `nvcc` for Hopper (sm_90a), one process per
+source and all at once, then linked into one shared library with a plain
+C interface, on first use, and loaded with ctypes.
 Nothing here runs at import: the CPU tests import every module of the
 package on machines without `nvcc` or a card.
 
@@ -32,7 +33,7 @@ LIB_PATH = os.path.join(BUILD_DIR, "libpcv_torch_kernels.so")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 # name -> (argtypes, restype).  Pointers and the stream are c_void_p (a
@@ -54,6 +55,13 @@ _SIGNATURES = {
     ),
     "pcv_promote": (
         [c_void_p, c_void_p, c_longlong, c_int, c_void_p, c_void_p], c_int,
+    ),
+    "pcv_cull_max_axes": ([], c_int),
+    "pcv_cull": (
+        [c_void_p, c_void_p, c_void_p, c_void_p, c_int, c_int, c_void_p,
+         c_void_p, c_void_p, c_longlong, c_void_p, c_void_p, c_void_p,
+         c_void_p],
+        c_int,
     ),
 }
 
@@ -91,26 +99,46 @@ def _nvcc() -> str:
     return path
 
 
+def _run(cmds: list) -> str:
+    """Run the nvcc commands concurrently; raise on the first failure."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for cmd, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log}")
+    return "".join(logs)
+
+
 def build(force: bool = False) -> BuildInfo:
     """Compile csrc/*.cu into LIB_PATH if it is missing or stale."""
     if not force and not _stale():
         return BuildInfo(0.0, "")
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.build.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    tag = f"build.{os.getpid()}"
+    tmp = f"{LIB_PATH}.{tag}"
+    objs = [os.path.join(BUILD_DIR, os.path.basename(src) + f".{tag}.o")
+            for src in _sources()]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                    for src, obj in zip(_sources(), objs)])
+        log += _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
         os.replace(tmp, LIB_PATH)
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return BuildInfo(time.perf_counter() - t0, proc.stdout + proc.stderr)
+        for path in (tmp, *objs):
+            if os.path.exists(path):
+                os.remove(path)
+    return BuildInfo(time.perf_counter() - t0, log)
 
 
 def lib() -> ctypes.CDLL:

@@ -1,0 +1,246 @@
+"""The viewer's per-frame frustum cull + LOD selection over every octree
+node (port of point_cloud_viewer_tpu/ops/culling.py).
+
+Each frame: the host derives the frustum's separating axes and the query
+corners' projections (numpy, copied below), the node table stays on the
+device, and one K5 launch (ops/cull_cuda.py) gives every node's screen
+size and visibility; a stable `torch.sort` of -priority orders the nodes
+(largest on screen first, invisible ones last, ties in index order as
+`jnp.argsort`).  On CPU tensors the same calls run K5's plain version.
+
+Frustum, Isometry and Perspective are the JAX package's jax-free host
+geometry (point_cloud_viewer_tpu.math.geometry), re-exported here for the
+callers of the session.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from point_cloud_viewer_tpu.math.geometry import (  # noqa: F401 (re-exported)
+    Frustum,
+    Isometry,
+    Perspective,
+)
+
+from ..device import resolve_device
+from .cull_cuda import cull_lod
+
+# --- copied from point_cloud_viewer_tpu/ops/culling.py:23-26 --------------
+
+# Unit cube corners, x fastest (matches octree.octree._CORNER_UNIT).
+_CORNER_UNIT = np.array(
+    [[x, y, z] for z in (0, 1) for y in (0, 1) for x in (0, 1)], dtype=np.float32
+)
+
+
+# --- the device step (culling.py:63-97) ------------------------------------
+
+
+def _order(priority: torch.Tensor) -> torch.Tensor:
+    """Indices by descending priority along the last dim, stable: the
+    order of jnp.argsort(-priority) (NaN last in both)."""
+    return torch.sort(-priority, dim=-1, stable=True).indices.to(torch.int32)
+
+
+def frustum_cull_lod_select(
+    matrix: torch.Tensor,  # (4, 4) clip_from_query
+    axes: torch.Tensor,  # (A, 3) cached separating axes
+    query_min_proj: torch.Tensor,  # (A,)
+    query_max_proj: torch.Tensor,  # (A,)
+    node_mins: torch.Tensor,  # (K, 3)
+    node_edges: torch.Tensor,  # (K,)
+    num_points: torch.Tensor,  # (K,) int32
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The per-frame step: returns (priority_order (K,) int32, sizes (K,),
+    visible (K,) bool) on the inputs' device.  priority_order lists ALL
+    node indices sorted by descending screen size with invisible nodes
+    pushed to the end; callers take the first `visible.sum()` entries."""
+    sizes, visible, priority = cull_lod(
+        matrix, axes, query_min_proj, query_max_proj, node_mins, node_edges,
+        num_points,
+    )
+    return _order(priority), sizes, visible
+
+
+def frustum_cull_lod_select_frames(
+    matrices, axes, query_min_proj, query_max_proj, node_mins, node_edges,
+    num_points,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """F frames in one K5 launch: (F, 4, 4) matrices, (F, A, 3) axes,
+    (F, A) projections -> ((F, K) orders, sizes, visible)."""
+    sizes, visible, priority = cull_lod(
+        matrices, axes, query_min_proj, query_max_proj, node_mins,
+        node_edges, num_points,
+    )
+    return _order(priority), sizes, visible
+
+
+# --- copied from point_cloud_viewer_tpu/ops/culling.py:100-186 -------------
+
+
+def frustum_cull_lod_select_host(
+    matrix: np.ndarray,
+    axes: np.ndarray,
+    query_min_proj: np.ndarray,
+    query_max_proj: np.ndarray,
+    node_mins: np.ndarray,
+    node_edges: np.ndarray,
+    num_points: np.ndarray,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host twin of frustum_cull_lod_select (same SAT + screen-size rules,
+    native C++ kernel with a numpy fallback), on numpy arrays."""
+    from point_cloud_viewer_tpu import native
+
+    out = native.cull_lod_select(
+        matrix, axes, query_min_proj, query_max_proj,
+        node_mins, node_edges, num_points,
+    )
+    if out is not None:
+        return out
+    # numpy fallback (same math as the device kernel, host-resident)
+    mins = np.asarray(node_mins, dtype=np.float32)
+    edges = np.asarray(node_edges, dtype=np.float32)
+    corners = mins[:, None, :] + _CORNER_UNIT[None, :, :] * edges[:, None, None]
+    proj = np.einsum("kcd,ad->kca", corners, np.asarray(axes, np.float32))
+    b_min, b_max = proj.min(axis=1), proj.max(axis=1)
+    out_mask = np.any(
+        (b_min > query_max_proj) | (b_max < query_min_proj), axis=1
+    )
+    m = np.asarray(matrix, dtype=np.float32)
+    q = np.einsum("kcd,rd->kcr", corners, m[:3, :3]) + m[:3, 3]
+    w = np.einsum("kcd,d->kc", corners, m[3, :3]) + m[3, 3]
+    p = q / w[..., None]
+    x = np.clip(p[..., 0], -1.0, 1.0)
+    y = np.clip(p[..., 1], -1.0, 1.0)
+    sizes = (x.max(axis=1) - x.min(axis=1)) * (y.max(axis=1) - y.min(axis=1))
+    visible = (~out_mask) & (np.asarray(num_points) > 0)
+    priority = np.where(visible, sizes, -np.inf)
+    order = np.argsort(-priority, kind="stable").astype(np.int32)
+    return order, sizes.astype(np.float32), visible
+
+
+def frustum_axes_and_projections(frustum) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host-side per-frame prep: cached separating axes of the frustum vs
+    AABBs plus the query-corner projections (A is data-dependent; computed
+    once per frame, tiny)."""
+    cached = frustum.intersector().cached_axes_for_aabb()
+    proj = cached.corners @ cached.axes.T  # (8, A)
+    return (
+        cached.axes.astype(np.float32),
+        proj.min(axis=0).astype(np.float32),
+        proj.max(axis=0).astype(np.float32),
+    )
+
+
+def pad_cull_axes(axes, qmin, qmax, a_cap: int):
+    """Pad a frame's SAT axes to width a_cap with inert sentinels: a zero
+    axis projects everything to 0, which the [-inf, inf] query range never
+    separates, so relations are unchanged."""
+    a = len(axes)
+    ax = np.zeros((a_cap, 3), np.float32)
+    qn = np.full(a_cap, -np.inf, np.float32)
+    qx = np.full(a_cap, np.inf, np.float32)
+    ax[:a] = axes
+    qn[:a] = qmin
+    qx[:a] = qmax
+    return ax, qn, qx
+
+
+def prep_frustum_frames(frustums, axis_capacity: int = 0):
+    """Host prep for a multi-frame cull dispatch: per-frame cached axes
+    padded to a common width (>= axis_capacity), stacked into (F, 4, 4)
+    matrices + (F, A, 3)/(F, A)/(F, A) axis arrays."""
+    prep = [frustum_axes_and_projections(f) for f in frustums]
+    a_cap = max([int(axis_capacity)] + [len(p[0]) for p in prep])
+    mats, axs, qns, qxs = [], [], [], []
+    for f, (axes, qmin, qmax) in zip(frustums, prep):
+        ax, qn, qx = pad_cull_axes(axes, qmin, qmax, a_cap)
+        mats.append(f.clip_from_query.astype(np.float32))
+        axs.append(ax)
+        qns.append(qn)
+        qxs.append(qx)
+    return np.stack(mats), np.stack(axs), np.stack(qns), np.stack(qxs)
+
+
+# --- the session (culling.py:189-259) --------------------------------------
+
+
+class DeviceCullSession:
+    """Device-resident cull + LOD selection across frames.
+
+    The node table (mins/edges/num_points) is uploaded ONCE to `device` as
+    f32/f32/int32, as the JAX session does (so an f64 octree table is cut
+    to f32 here too); each frame ships only a 4x4 matrix and `a_cap`
+    padded SAT axes (zero axes with an infinite query range never
+    separate).  `a_cap` starts at `axis_capacity` and grows to twice a
+    frustum's axis count when one needs more.  `step` is one K5 launch per
+    frame, `step_frames` one launch for F frames; both fetch (order,
+    sizes, visible) to numpy, which synchronises on the device's default
+    stream, so the session can run in a worker thread.
+
+    On a CUDA device the kernel library is built (or loaded) here, so the
+    first frame does not wait for nvcc.  Frame i of `step_frames` is
+    bit-equal to `step` on the same frustum at the same `a_cap` (one
+    kernel, one arithmetic per node and frame)."""
+
+    def __init__(self, node_mins, node_edges, num_points,
+                 axis_capacity: int = 32, device="cuda") -> None:
+        self.device = resolve_device(device)
+        self.a_cap = int(axis_capacity)
+        self._mins = torch.as_tensor(
+            np.asarray(node_mins, dtype=np.float32).reshape(-1, 3),
+            device=self.device)
+        self._edges = torch.as_tensor(
+            np.asarray(node_edges, dtype=np.float32), device=self.device)
+        self._num_points = torch.as_tensor(
+            np.asarray(num_points, dtype=np.int32), device=self.device)
+        if self.device.type == "cuda":
+            from . import _ext
+
+            _ext.lib()
+
+    def _pad(self, axes, qmin, qmax):
+        a = len(axes)
+        if a > self.a_cap:  # grow once; next frames reuse the new width
+            self.a_cap = int(a * 2)
+        return pad_cull_axes(axes, qmin, qmax, self.a_cap)
+
+    def _put(self, array: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(array, dtype=torch.float32, device=self.device)
+
+    def step(self, frustum) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """One frame -> (priority_order (K,) i32, sizes (K,), visible (K,))."""
+        axes, qmin, qmax = frustum_axes_and_projections(frustum)
+        ax, qn, qx = self._pad(axes, qmin, qmax)
+        order, sizes, visible = frustum_cull_lod_select(
+            self._put(frustum.clip_from_query.astype(np.float32)),
+            self._put(ax), self._put(qn), self._put(qx),
+            self._mins, self._edges, self._num_points,
+        )
+        return order.cpu().numpy(), sizes.cpu().numpy(), visible.cpu().numpy()
+
+    def step_frames(self, frustums) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """F frames in ONE launch -> ((F, K) orders, sizes, visible)."""
+        frustums = list(frustums)
+        if not frustums:
+            k = len(self._edges)
+            return (
+                np.empty((0, k), np.int32),
+                np.empty((0, k), np.float32),
+                np.empty((0, k), bool),
+            )
+        need = max(
+            len(frustum_axes_and_projections(f)[0]) for f in frustums
+        )
+        if need > self.a_cap:
+            self.a_cap = int(need * 2)
+        mats, axs, qns, qxs = prep_frustum_frames(frustums, self.a_cap)
+        order, sizes, visible = frustum_cull_lod_select_frames(
+            self._put(mats), self._put(axs), self._put(qns), self._put(qxs),
+            self._mins, self._edges, self._num_points,
+        )
+        return order.cpu().numpy(), sizes.cpu().numpy(), visible.cpu().numpy()

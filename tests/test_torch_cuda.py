@@ -1,6 +1,8 @@
 """Card-only tests of the PyTorch port: each CUDA kernel against its plain
-PyTorch version, and the device core and the build on the card against the
-same code on the CPU.  Integer state: tolerance 0.
+PyTorch version, and the device core, the build and the cull session on
+the card against the same code on the CPU.  Integer state: tolerance 0;
+the cull's f32 outputs: bit for bit too (NaN matching NaN), since K5 and
+its plain version round every operation alike.
 
 Every test here is marked `cuda` and skips where torch sees no card.  This
 file imports neither jax nor tests/conftest.py, so it also runs on a GPU
@@ -15,6 +17,8 @@ import torch
 
 from point_cloud_viewer_tpu.core.points_batch import PointsBatch
 from point_cloud_viewer_tpu_torch.octree.builder import build_octree
+from point_cloud_viewer_tpu_torch.ops import cull_cuda as CC
+from point_cloud_viewer_tpu_torch.ops import culling
 from point_cloud_viewer_tpu_torch.ops import level_cuda as LC
 from point_cloud_viewer_tpu_torch.ops import morton
 from point_cloud_viewer_tpu_torch.ops import scan_cuda as SC
@@ -109,3 +113,102 @@ def test_build_on_card_matches_cpu(cuda, tmp_path):
     assert names == sorted(p.name for p in card.iterdir())
     for name in names:
         assert (card / name).read_bytes() == (cpu / name).read_bytes(), name
+
+
+def _same(a, b):
+    """Bit for bit, NaN matching NaN (-0 matches +0)."""
+    a, b = a.cpu(), b.cpu()
+    return a.shape == b.shape and bool(
+        ((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def _cull_frames(frames, a_cap):
+    """`frames` frusta orbiting a 100 m box, axes padded to a_cap."""
+    frustums = [
+        culling.Frustum.new(
+            culling.Isometry.from_axis_angle(
+                [0, 1, 0], 0.2 + 0.15 * i, translation=[50.0, 50.0, 180.0]),
+            culling.Perspective.from_fov(1.2, 1.0, 0.5, 400.0))
+        for i in range(frames)
+    ]
+    return frustums, culling.prep_frustum_frames(frustums, a_cap)
+
+
+def _cull_table(k, seed):
+    """Random cubes, some empty, some across the eyes' camera planes."""
+    rng = np.random.default_rng(seed)
+    edges = (100.0 / np.exp2(rng.integers(0, 9, k))).astype(np.float32)
+    mins = (rng.random((k, 3)) * [100.0, 100.0, 200.0]).astype(np.float32)
+    num_points = rng.integers(0, 1000, k).astype(np.int32)
+    num_points[::11] = 0
+    return mins, edges, num_points
+
+
+@pytest.mark.parametrize("k,frames,a_cap", [
+    (0, 1, 32), (1, 1, 32), (4097, 1, 32), (4097, 1, 40), (20_000, 3, 64),
+])
+def test_cull_kernel_matches_plain(cuda, k, frames, a_cap):
+    mins, edges, num_points = _cull_table(k, seed=k + a_cap)
+    _, (mats, axs, qns, qxs) = _cull_frames(frames, a_cap)
+    table = [torch.from_numpy(a).to(cuda) for a in (mins, edges, num_points)]
+    batched = [torch.from_numpy(a).to(cuda) for a in (mats, axs, qns, qxs)]
+    before = CC.cull_lod.launches
+    got = CC.cull_lod(*batched, *table)
+    want = CC.cull_lod_plain(*batched, *table)
+    assert CC.cull_lod.launches == before + (1 if k else 0)
+    for g, w in zip(got, want):
+        assert g.shape == (frames, k) and _same(g, w)
+    for f in range(frames):
+        one = CC.cull_lod(*(t[f] for t in batched), *table)
+        for g, w in zip(one, got):
+            assert _same(g, w[f])
+    if k > 1000:  # a strict subset of the nodes is visible
+        assert 0 < int(got[1].sum()) < frames * k
+
+
+def test_cull_kernel_nan_and_straddle_match_plain(cuda):
+    """An eye at the origin: cubes with a corner at the eye (w = 0 and
+    q = 0: NaN sizes), across the camera plane (+-inf, clamped) and
+    behind it."""
+    frustum = culling.Frustum.new(
+        culling.Isometry.identity(),
+        culling.Perspective.from_fov(1.0, 1.0, 0.1, 100.0))
+    axes, qmin, qmax = culling.frustum_axes_and_projections(frustum)
+    rng = np.random.default_rng(3)
+    mins = np.concatenate([
+        np.array([[0.0, 0.0, -1.0], [0.0, 0.0, 0.0], [-1.0, -1.0, -1.0],
+                  [-0.5, -0.5, -0.25], [2.0, 2.0, 5.0]]),
+        rng.integers(-8, 8, (3000, 3)) * 0.5,
+    ]).astype(np.float32)
+    edges = np.concatenate([[1.0, 1.0, 2.0, 0.5, 1.0],
+                            rng.choice([0.5, 1.0, 2.0], 3000)])
+    args = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+            for a in (frustum.clip_from_query, axes, qmin, qmax, mins,
+                      edges)]
+    args.append(torch.full((len(edges),), 3, dtype=torch.int32))
+    args = [t.to(cuda) for t in args]
+    got = CC.cull_lod(*args)
+    want = CC.cull_lod_plain(*args)
+    for g, w in zip(got, want):
+        assert _same(g, w)
+    assert bool(got[0].isnan().any()) and bool(got[1][0])
+    order, _, _ = culling.frustum_cull_lod_select(*args)
+    assert torch.equal(order.cpu(), culling.frustum_cull_lod_select(
+        *(t.cpu() for t in args))[0])
+
+
+def test_cull_session_on_card_matches_cpu(cuda):
+    mins, edges, num_points = _cull_table(50_000, seed=5)
+    frustums, _ = _cull_frames(6, 0)
+    card = culling.DeviceCullSession(mins, edges, num_points,
+                                     axis_capacity=8, device=cuda)
+    cpu = culling.DeviceCullSession(mins, edges, num_points,
+                                    axis_capacity=8, device="cpu")
+    before = CC.cull_lod.launches
+    for f in frustums:
+        for a, b in zip(card.step(f), cpu.step(f)):
+            assert _same(torch.from_numpy(a), torch.from_numpy(b))
+    for a, b in zip(card.step_frames(frustums), cpu.step_frames(frustums)):
+        assert _same(torch.from_numpy(a), torch.from_numpy(b))
+    assert CC.cull_lod.launches == before + len(frustums) + 1
+    assert card.a_cap == cpu.a_cap > 8

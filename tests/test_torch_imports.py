@@ -20,6 +20,10 @@ _PORT_MODULES = [
     "point_cloud_viewer_tpu_torch.ops.level_cuda",
     "point_cloud_viewer_tpu_torch.octree.builder",
     "point_cloud_viewer_tpu_torch.cli.build_octree",
+    "point_cloud_viewer_tpu_torch.ops.cull_cuda",
+    "point_cloud_viewer_tpu_torch.ops.culling",
+    "point_cloud_viewer_tpu_torch.viewer.render_loop",
+    "point_cloud_viewer_tpu_torch.cli.view",
 ]
 
 
