@@ -25,7 +25,17 @@ Phases (any failure raises and the exit code is non-zero):
                 against device="cpu" over that table and phase 5's octree,
                 60 orbit frames, bit for bit; c. the port's viewer CLI
                 (cli.view --device_cull --frames 60) on phase 5's octree:
-                K5 launches, visible nodes, a decodable final PNG.
+                K5 launches, visible nodes, a decodable final PNG;
+  7. leaf + streaming -- a. K6 at 16M and 64M sorted synthetic codes against
+                its plain version and the device core's leaf output, bit for
+                bit, with CUDA-event medians of K6, its plain version, the
+                21-level K2 + K3 loop and the boundary levels it starts from;
+                b. phase 5's PLY through cli.build_octree --use_device
+                --streaming, byte-compared with phase 5's in-core output, then
+                a 64M-point PLY built in core and streamed on the card and
+                byte-compared; per-bucket phase times, bytes up and down, the
+                bucket count, the streaming path's K1-K4 launches and the
+                share of the card's bucket time the host waited for.
 
 The CPU route itself is held to the JAX package by tests/test_torch_*.py.
 The line before the last is a JSON object {"kernels": [...]}; the last is
@@ -52,6 +62,8 @@ import numpy as np
 SIZES = (16_000_017, 64_000_017)     # phase 3: ragged element counts
 CORE_SIZES = (16_000_000, 64_000_000)  # phase 4: synthetic codes
 E2E_POINTS = 16_000_000              # phase 5: the README's in-core cloud
+BIG_POINTS = 64_000_000              # phase 7b: a ~2 GB PLY, streamed
+LEAF_MAX_POINTS = 100_000            # MAX_POINTS_PER_NODE
 CULL_NODES = 1_048_576               # phase 6: bench.py's 1M-node tree
 CULL_BATCH = 64                      # phase 6a: bench.py's batched orbit
 VIEW_FRAMES = 60                     # phase 6b/c: cli.view's default orbit
@@ -329,8 +341,9 @@ def run_cli(args: list, phase_times: dict) -> str:
 
 def phase_e2e(wrappers: dict, tmp: str) -> tuple:
     """16M points through the CLI on the card, held byte for byte against
-    the CLI with --device cpu; returns the main path's launch counts and
-    the card's octree directory (under tmp, kept for phase 6)."""
+    the CLI with --device cpu; returns the main path's launch counts, the
+    card's octree directory (kept for phases 6 and 7b), the PLY (kept for
+    7b) and the card build's wall seconds."""
     ply = os.path.join(tmp, "cloud.ply")
     a_dir = os.path.join(tmp, "card")
     b_dir = os.path.join(tmp, "cpu")
@@ -368,9 +381,8 @@ def phase_e2e(wrappers: dict, tmp: str) -> tuple:
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
-    os.remove(ply)
     shutil.rmtree(b_dir)
-    return launches, a_dir
+    return launches, a_dir, ply, wall
 
 # --- phase 6: the viewer's device cull ------------------------------------
 
@@ -709,6 +721,157 @@ def phase_view(octree_dir: str, tmp: str) -> int:
     return launches
 
 
+# --- phase 7: K6 and the streaming build ----------------------------------
+
+
+def phase_leaf_levels(record: dict) -> int:
+    """7a: K6 at SIZES sorted synthetic codes against its plain version and
+    the device core's leaf output (tolerance 0); returns K6's launches on
+    its path (the compared calls, not the timed ones)."""
+    import torch
+
+    from point_cloud_viewer_tpu_torch.ops import leaf_levels_cuda as K6
+    from point_cloud_viewer_tpu_torch.ops import level_cuda as LC
+    from point_cloud_viewer_tpu_torch.ops.tree_build import (
+        _bound_levels,
+        build_tree_device_codes_grouped,
+    )
+
+    dev = torch.device(DEVICE)
+    K6.leaf_levels.launches = 0
+    launches = 0
+    for n in SIZES:
+        tag = f"n={n}"
+        codes = torch.sort(torch.from_numpy(
+            synthetic_codes(n, seed=n).view(np.int64)).to(dev)).values
+        before = K6.leaf_levels.launches
+        got = K6.leaf_levels(codes, DEPTH, DEPTH, LEAF_MAX_POINTS)
+        torch.cuda.synchronize()
+        launches += K6.leaf_levels.launches - before
+        plain = K6.leaf_levels_plain(codes, DEPTH, DEPTH, LEAF_MAX_POINTS)
+        core = build_tree_device_codes_grouped(
+            codes, n, DEPTH, DEPTH, LEAF_MAX_POINTS,
+            extras_cap=max(512, n >> 6)).leaf
+        err_plain, err_core = max_abs_err(got, plain), max_abs_err(got, core)
+        log(f"K6 leaf_levels {tag}: max_abs_err vs plain {err_plain}, vs "
+            f"core leaf {err_core}; leaf levels "
+            f"{torch.bincount(got, minlength=DEPTH + 1).tolist()}")
+        record["K6"]["err"] = max(record["K6"]["err"], err_plain, err_core)
+        if err_plain or err_core:
+            raise AssertionError(f"K6 {tag}: err vs plain {err_plain}, vs "
+                                 f"core {err_core}")
+        del plain, core
+
+        b = _bound_levels(codes, DEPTH)
+        fresh = (torch.full((n,), DEPTH, dtype=torch.uint8, device=dev),
+                 torch.zeros(n, dtype=torch.uint8, device=dev))
+
+        def leaf_loop(leaf, found):
+            for level in range(1, DEPTH + 1):
+                LC.leaf_update_pass(b, LC.seg_start_pass(b, level), leaf,
+                                    found, level, LEAF_MAX_POINTS)
+
+        times = {
+            "K6": cuda_ms(lambda: K6.leaf_levels(codes, DEPTH, DEPTH,
+                                                 LEAF_MAX_POINTS)),
+            "plain": cuda_ms(lambda: K6.leaf_levels_plain(
+                codes, DEPTH, DEPTH, LEAF_MAX_POINTS), reps=3),
+            "21 x (K2 + K3)": cuda_ms(
+                leaf_loop, lambda: tuple(t.clone() for t in fresh)),
+            "_bound_levels": cuda_ms(lambda: _bound_levels(codes, DEPTH)),
+        }
+        log(f"K6 {tag} (CUDA-event medians, ms; K6 and plain include "
+            f"_bound_levels, the loop starts from b): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+        record["K6"]["times"][n] = (times["K6"], times["plain"])
+        record["K6"]["loop"][n] = (times["21 x (K2 + K3)"],
+                                   times["_bound_levels"])
+        del codes, got, b, fresh
+        torch.cuda.empty_cache()
+    return launches
+
+
+def streaming_cli(ply: str, out_dir: str, spill: str, wrappers: dict):
+    """The port's CLI with --streaming on the card, launch counts set to 0
+    just before and read just after; -> (wall s, phases, launches)."""
+    for w in wrappers.values():
+        w.launches = 0
+    phases = {}
+    t0 = time.perf_counter()
+    said = run_cli([ply, "--output_directory", out_dir, "--use_device",
+                    "--device", DEVICE, "--streaming", "--spill_directory",
+                    spill], phases)
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    log("streaming: cli said: " + said.strip().splitlines()[0])
+    buckets = int(phases.get("buckets_derived", 0))
+    host = {k: phases.get(k, 0.0) for k in (
+        "bucket_load", "bucket_quantize", "bucket_device_dispatch",
+        "bucket_group", "bucket_encode_write")}
+    wait = phases.get("bucket_device_wait", 0.0)
+    busy = phases.get("bucket_device_busy", 0.0)
+    log(f"streaming: wall {wall:.3f} s; phases (s, bytes) "
+        f"{json.dumps(phases)}; launches {json.dumps(launches)}")
+    log(f"streaming: {buckets} buckets derived on the card; per bucket (ms): "
+        + ", ".join(f"{k} {v * 1e3 / max(buckets, 1):.3f}"
+                    for k, v in {**host, "bucket_device_derive":
+                                 phases.get("bucket_device_derive", 0.0),
+                                 "bucket_device_wait": wait,
+                                 "bucket_device_busy": busy}.items())
+        + f"; up {phases.get('bucket_upload_bytes', 0) / max(buckets, 1):.0f}"
+        f" B, down {phases.get('bucket_fetch_bytes', 0) / max(buckets, 1):.0f}"
+        " B")
+    log(f"streaming overlap: host waited {wait:.4f} s for {busy:.4f} s of "
+        f"card time (upload + derivation) = "
+        f"{wait / busy if busy else 0.0:.4f} of it not hidden, against "
+        f"{sum(host.values()):.3f} s of host bucket phases")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing or buckets <= 0:
+        raise AssertionError(f"streaming path: kernels not launched "
+                             f"{missing}, {buckets} buckets")
+    return wall, phases, launches
+
+
+def phase_streaming(wrappers: dict, tmp: str, ply16: str, incore16: str,
+                    incore16_wall: float) -> dict:
+    """7b: phase 5's PLY streamed on the card against phase 5's in-core
+    output, then BIG_POINTS built in core and streamed, byte for byte;
+    every intermediate is deleted once compared.  Returns the 16M
+    streaming path's launch counts."""
+    spill = os.path.join(tmp, "spill")
+    out = os.path.join(tmp, "streamed16")
+    wall, _, launches16 = streaming_cli(ply16, out, spill, wrappers)
+    files = dirs_byte_equal(incore16, out)
+    log(f"streaming 16M: == phase 5's in-core card build, {files} files "
+        f"byte-equal; wall streamed {wall:.3f} s vs in core "
+        f"{incore16_wall:.3f} s")
+    os.remove(ply16)
+    shutil.rmtree(out)
+
+    ply = os.path.join(tmp, "big.ply")
+    t0 = time.perf_counter()
+    write_ply(ply, BIG_POINTS, seed=6)
+    log(f"streaming 64M: wrote {BIG_POINTS} points "
+        f"({os.path.getsize(ply)} B) in {time.perf_counter() - t0:.3f} s")
+    incore = os.path.join(tmp, "incore64")
+    phases = {}
+    t0 = time.perf_counter()
+    said = run_cli([ply, "--output_directory", incore, "--use_device",
+                    "--device", DEVICE], phases)
+    incore_wall = time.perf_counter() - t0
+    log(f"streaming 64M: in-core card build {incore_wall:.3f} s; phases (s) "
+        f"{json.dumps(phases)}; cli said: {said.strip().splitlines()[0]}")
+    out = os.path.join(tmp, "streamed64")
+    wall, _, _ = streaming_cli(ply, out, spill, wrappers)
+    os.remove(ply)
+    files = dirs_byte_equal(incore, out)
+    log(f"streaming 64M: == in-core card build, {files} files byte-equal; "
+        f"wall streamed {wall:.3f} s vs in core {incore_wall:.3f} s")
+    shutil.rmtree(incore)
+    shutil.rmtree(out)
+    return launches16
+
+
 def main() -> int:
     import torch
 
@@ -718,6 +881,7 @@ def main() -> int:
         return 1
     from point_cloud_viewer_tpu_torch.ops import _ext
     from point_cloud_viewer_tpu_torch.ops import cull_cuda as CC
+    from point_cloud_viewer_tpu_torch.ops import leaf_levels_cuda as K6
     from point_cloud_viewer_tpu_torch.ops import level_cuda as LC
     from point_cloud_viewer_tpu_torch.ops import scan_cuda as SC
 
@@ -751,17 +915,25 @@ def main() -> int:
         "K5": ("cull_lod", CC.cull_lod,
                "point_cloud_viewer_tpu_torch/csrc/cull.cu",
                "point_cloud_viewer_tpu/ops/culling_pallas.py:81"),
+        "K6": ("leaf_levels", K6.leaf_levels,
+               "point_cloud_viewer_tpu_torch/csrc/leaf_levels.cu",
+               "point_cloud_viewer_tpu/ops/tree_build_pallas.py:150"),
     }
-    record = {k: {"err": 0, "times": {}} for k in kernels}
+    record = {k: {"err": 0, "times": {}, "loop": {}} for k in kernels}
     phase_kernels(record)
     phase_core()
+    build = {k: v[1] for k, v in kernels.items() if k in ("K1", "K2", "K3",
+                                                          "K4")}
     tmp = tempfile.mkdtemp(prefix="pcv_chip_smoke_")
     try:
-        launches, octree_dir = phase_e2e(
-            {k: v[1] for k, v in kernels.items() if k != "K5"}, tmp)
+        launches, octree_dir, ply, incore_wall = phase_e2e(build, tmp)
         table = phase_cull_kernel(record)
         phase_cull_session(octree_dir, table)
         launches["K5"] = phase_view(octree_dir, tmp)
+        launches["K6"] = phase_leaf_levels(record)
+        streamed = phase_streaming(build, tmp, ply, octree_dir, incore_wall)
+        log(f"launches on the in-core path (phase 5) {json.dumps(launches)}; "
+            f"on the streaming path (phase 7b, 16M) {json.dumps(streamed)}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

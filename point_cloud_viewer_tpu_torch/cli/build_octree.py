@@ -4,10 +4,11 @@ reference: src/bin/build_octree.rs).
 
 Usage: python -m point_cloud_viewer_tpu_torch.cli.build_octree INPUT.ply \
            --output_directory DIR --use_device [--device cuda] \
-           [--resolution 0.001]
+           [--resolution 0.001] [--streaming [--bucket_levels 2] \
+           [--spill_directory SPILL]]
 
-Only the in-core --use_device route is ported; --streaming, --mesh and the
-host build exit with "not yet ported".
+The in-core and the out-of-core (--streaming) --use_device routes are
+ported; --mesh and the host build exit with "not yet ported".
 """
 
 from __future__ import annotations
@@ -49,8 +50,19 @@ def main(argv=None, phase_times: Optional[dict] = None) -> int:
     )
     parser.add_argument("--mesh", type=int, default=0, metavar="N",
                         help="Multi-device build (not yet ported).")
-    parser.add_argument("--streaming", action="store_true",
-                        help="Out-of-core build (not yet ported).")
+    parser.add_argument(
+        "--streaming",
+        action="store_true",
+        help="Bounded-memory out-of-core build (for clouds larger than RAM).",
+    )
+    parser.add_argument("--bucket_levels", type=int, default=2)
+    parser.add_argument(
+        "--spill_directory",
+        default=None,
+        help="Spill directory for --streaming builds; giving one makes the "
+        "build RESUMABLE (re-run the same command after a crash to "
+        "continue from the last finished bucket).",
+    )
     parser.add_argument(
         "--num_threads", type=int, default=None,
         help="Node-file write pool size — set as high as possible for "
@@ -58,8 +70,13 @@ def main(argv=None, phase_times: Optional[dict] = None) -> int:
     )
     args = parser.parse_args(argv)
 
-    if args.streaming:
-        parser.error("--streaming: not yet ported, see ROADMAP")
+    if args.streaming and args.mesh:
+        parser.error(
+            "--mesh is not supported with --streaming (the out-of-core "
+            "builder shards over disk buckets instead of devices)"
+        )
+    if args.spill_directory and not args.streaming:
+        parser.error("--spill_directory requires --streaming")
     if args.mesh:
         parser.error("--mesh: not yet ported, see ROADMAP")
     if not args.use_device:
@@ -72,18 +89,35 @@ def main(argv=None, phase_times: Optional[dict] = None) -> int:
 
         os.environ["PCV_WRITE_THREADS"] = str(args.num_threads)
 
-    from ..octree.builder import build_octree_from_file
-
     times = {} if phase_times is None else phase_times
-    result = build_octree_from_file(
-        args.output_directory,
-        args.resolution,
-        args.input,
-        attributes=args.attributes,
-        use_device=True,
-        phase_times=times,
-        device=args.device,
-    )
+    if args.streaming:
+        from point_cloud_viewer_tpu.io.ply import PlyReader
+
+        from ..octree.streaming import build_octree_streaming
+
+        result = build_octree_streaming(
+            args.output_directory,
+            args.resolution,
+            PlyReader(args.input),
+            attributes=args.attributes,
+            bucket_levels=args.bucket_levels,
+            spill_directory=args.spill_directory,
+            use_device=True,
+            phase_times=times,
+            device=args.device,
+        )
+    else:
+        from ..octree.builder import build_octree_from_file
+
+        result = build_octree_from_file(
+            args.output_directory,
+            args.resolution,
+            args.input,
+            attributes=args.attributes,
+            use_device=True,
+            phase_times=times,
+            device=args.device,
+        )
     print(
         f"Built octree with {result.num_points} points in "
         f"{len(result.nodes)} nodes (depth cap {result.depth_cap}) "

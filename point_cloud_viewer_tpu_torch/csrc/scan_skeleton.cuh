@@ -1,5 +1,6 @@
 // Reduce-then-scan skeleton shared by every carried sweep of the port
-// (scan.cu: K1 scan_1d; level.cu: K2 seg_start, K3 leaf_update, K4 promote).
+// (scan.cu: K1 scan_1d; level.cu: K2 seg_start, K3 leaf_update, K4 promote;
+// leaf_levels.cu: K6 uses its block scans and the in-place carry scan).
 //
 // The Pallas kernels these replace (point_cloud_viewer_tpu/ops/scan_pallas.py,
 // ops/level_pallas.py) keep a running carry in SMEM across a grid that the
@@ -120,10 +121,11 @@ tile_reduce(Src src, long long n, typename Op::T* agg) {
   if (threadIdx.x == 0) agg[blockIdx.x] = total;
 }
 
-// One block: agg[t] <- combine of agg[0 .. t-1] (the carry-in of tile t).
-template <class Op>
-__global__ void __launch_bounds__(kAggThreads)
-agg_exclusive_scan(typename Op::T* agg, long long num_tiles) {
+// One whole block, in place: agg[t] <- combine of the elements before t in
+// sweep order (REV: the elements after t), i.e. the carry-in of tile t.
+template <class Op, bool REV = false>
+__device__ void block_exclusive_scan_in_place(typename Op::T* agg,
+                                              long long num_tiles) {
   using T = typename Op::T;
   T carry = Op::identity();
   const long long per_round = static_cast<long long>(blockDim.x) * kItems;
@@ -133,18 +135,26 @@ agg_exclusive_scan(typename Op::T* agg, long long num_tiles) {
     T acc = Op::identity();
 #pragma unroll
     for (int k = 0; k < kItems; ++k) {
-      v[k] = base + k < num_tiles ? agg[base + k] : Op::identity();
+      const long long l = base + k;
+      v[k] = l < num_tiles ? agg[REV ? num_tiles - 1 - l : l] : Op::identity();
       acc = Op::combine(acc, v[k]);
     }
     T total;
     T run = Op::combine(carry, block_exclusive_scan<Op>(acc, &total));
 #pragma unroll
     for (int k = 0; k < kItems; ++k) {
-      if (base + k < num_tiles) agg[base + k] = run;
+      const long long l = base + k;
+      if (l < num_tiles) agg[REV ? num_tiles - 1 - l : l] = run;
       run = Op::combine(run, v[k]);
     }
     carry = Op::combine(carry, total);
   }
+}
+
+template <class Op>
+__global__ void __launch_bounds__(kAggThreads)
+agg_exclusive_scan(typename Op::T* agg, long long num_tiles) {
+  block_exclusive_scan_in_place<Op>(agg, num_tiles);
 }
 
 template <class Op, bool REV, class Src, class Epi>

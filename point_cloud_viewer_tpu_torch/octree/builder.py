@@ -18,6 +18,9 @@ the JAX package's, byte for byte.  The jax-free layers (core, io, protos,
 math.geometry, octree.node_id, ops.codec, native, utils.progress) are
 imported from point_cloud_viewer_tpu as they are.
 
+The out-of-core build (octree/streaming.py) shares these helpers, plus the
+subtree grouping and bottom-up subsampling copied below for it.
+
 Not ported yet (see ROADMAP.md): the host build (`use_device=False`),
 deep builds past the 63-bit code budget, and multi-device (`mesh`) builds.
 """
@@ -132,7 +135,7 @@ def build_octree(
     from point_cloud_viewer_tpu.utils.progress import timed_phase
 
     from ..device import resolve_device
-    from ..ops.tree_build import build_tree_device_codes_grouped
+    from ..ops.tree_build import fetch_grouped, tree_codes_grouped_on_device
 
     if not use_device:
         raise NotImplementedError(
@@ -188,34 +191,20 @@ def build_octree(
         # (order2 sorted by (final level, code) + per-level counts +
         # 1-point-leaf extras); the classic idx/final/leaf arrays stay on
         # the device as the extras-overflow fallback (builder.py:205-232).
-        out = build_tree_device_codes_grouped(
-            morton.codes_to_tensor(codes_unsorted, dev), n,
-            depth_cap, depth_cap, extras_cap=max(512, n >> 6),
-        )
-        extras_total = int(out.extras_total)  # scalar first: pick ONE exchange
-        overflow = extras_total > out.extras_idx.shape[0]
-        if overflow:
-            order = out.idx.cpu().numpy().astype(np.int64)
-            final_levels = out.final.cpu().numpy()
-            leaf_levels = out.leaf.cpu().numpy()
-        else:
-            order = out.order2.cpu().numpy().astype(np.int64)
-            level_counts = out.level_counts.cpu().numpy()
-            extras_idx = out.extras_idx[:extras_total].cpu().numpy().astype(
-                np.int64
-            )
-            extras_level = out.extras_level[:extras_total].cpu().numpy()
-        del out
+        got = fetch_grouped(tree_codes_grouped_on_device(
+            codes_unsorted, depth_cap, depth_cap, device=dev
+        ))
     with timed_phase(phase_times, "group levels"):
-        if overflow:
-            codes = codes_unsorted[order]
+        if got.overflow:
+            order = got.idx
             final_nodes = _group_device_levels(
-                codes, final_levels, leaf_levels, depth_cap
+                codes_unsorted[order], got.final, got.leaf, depth_cap
             )
         else:
+            order = got.order2
             final_nodes, _ = _group_subtree_levels_from_level_order(
-                codes_unsorted, order, level_counts, extras_idx,
-                extras_level, depth_cap, 0, include_root=True,
+                codes_unsorted, order, got.level_counts, got.extras_idx,
+                got.extras_level, depth_cap, 0, include_root=True,
             )
 
     # --- 2. encode + write -------------------------------------------------
@@ -230,6 +219,104 @@ def build_octree(
     return BuildResult(
         output_directory, root_cube, resolution, bounding_box, nodes, depth_cap
     )
+
+
+# --- copied from point_cloud_viewer_tpu/octree/builder.py:776-862 ---------
+
+
+def _ranges_to_indices(ranges: np.ndarray) -> np.ndarray:
+    """[(start, end)] -> concatenated arange(start, end) per row."""
+    counts = ranges[:, 1] - ranges[:, 0]
+    total = int(counts.sum())
+    if total == 0:
+        return np.empty(0, dtype=np.int64)
+    # start of each output segment
+    seg_offsets = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    out = np.repeat(ranges[:, 0] - seg_offsets, counts)
+    return out + np.arange(total, dtype=np.int64)
+
+
+def _merge_levels(a: _LevelNodes, b: _LevelNodes) -> _LevelNodes:
+    """Merge two disjoint node sets of the same level, keeping paths sorted."""
+    paths = np.concatenate([a.paths, b.paths])
+    order = np.argsort(paths, kind="stable")
+    counts = np.concatenate([a.counts, b.counts])[order]
+    all_segments = [a.idx[a.offsets[i] : a.offsets[i + 1]] for i in range(len(a.paths))]
+    all_segments += [b.idx[b.offsets[i] : b.offsets[i + 1]] for i in range(len(b.paths))]
+    segments = [all_segments[i] for i in order]
+    idx = np.concatenate(segments) if segments else np.empty(0, dtype=np.int64)
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    return _LevelNodes(paths=paths[order], offsets=offsets, idx=idx)
+
+
+def _subsample_bottom_up(
+    levels: Dict[int, _LevelNodes], stop_level: int = 0
+) -> Dict[int, _LevelNodes]:
+    """Promote every 8th point of each node to its parent, deepest level
+    first; returns the FINAL point lists per level (what gets written).
+
+    With stop_level > 0, promotion stops there: levels > stop_level are
+    final and the accumulated (pre-promotion) lists AT stop_level are
+    returned under that key — the out-of-core builder's bucket residual."""
+    if not levels:
+        return {}
+    final: Dict[int, _LevelNodes] = {}
+    deepest = max(levels)
+    current: Optional[_LevelNodes] = None  # all nodes at `level`
+    for level in range(deepest, stop_level, -1):
+        node_set = levels.get(level)
+        if current is not None and node_set is not None:
+            node_set = _merge_levels(current, node_set)
+        elif current is not None:
+            node_set = current
+        if node_set is None:
+            current = None
+            continue
+
+        counts = node_set.counts
+        pos_in_node = np.arange(len(node_set.idx), dtype=np.int64) - np.repeat(
+            node_set.offsets[:-1], counts
+        )
+        promote = pos_in_node % 8 == 0
+
+        # Final content of this level's nodes.
+        keep_counts = counts - _segment_sum_bool(promote, node_set.offsets)
+        final[level] = _LevelNodes(
+            paths=node_set.paths,
+            offsets=np.concatenate([[0], np.cumsum(keep_counts)]),
+            idx=node_set.idx[~promote],
+        )
+
+        # Parent nodes: group promoted points by parent path (children are
+        # sorted, so each parent's children are consecutive).
+        parent_of_node = node_set.paths >> np.uint64(3)
+        parent_paths, parent_starts = np.unique(parent_of_node, return_index=True)
+        promoted_counts = counts - keep_counts
+        parent_counts = np.add.reduceat(promoted_counts, parent_starts)
+        current = _LevelNodes(
+            paths=parent_paths,
+            offsets=np.concatenate([[0], np.cumsum(parent_counts)]),
+            idx=node_set.idx[promote],
+        )
+    if current is not None:
+        # stop_level == 0: the root keeps everything it received; otherwise
+        # the stop level's pre-promotion lists are handed back to the caller.
+        final[stop_level] = (
+            _merge_levels(current, levels[stop_level])
+            if stop_level in levels
+            else current
+        )
+    elif stop_level in levels:
+        final[stop_level] = levels[stop_level]
+    return final
+
+
+# --- copied from point_cloud_viewer_tpu/octree/builder.py:1098-1100 --------
+
+
+def _segment_sum_bool(mask: np.ndarray, offsets: np.ndarray) -> np.ndarray:
+    cs = np.concatenate([[0], np.cumsum(mask)])
+    return cs[offsets[1:]] - cs[offsets[:-1]]
 
 
 # --- copied from point_cloud_viewer_tpu/octree/builder.py:863-955 ---------
@@ -328,6 +415,47 @@ def _level_groups(codes, final_levels, leaf_levels, depth_cap):
         lsel = order_leaf[leaf_starts[level] : leaf_starts[level + 1]]
         leaf_paths[level], _ = _sorted_unique_counts(codes[lsel] >> shift)
     return order_final, final_starts, occupied, leaf_paths
+
+
+# --- copied from point_cloud_viewer_tpu/octree/builder.py:958-993 ---------
+
+
+def _group_subtree_levels(
+    codes: np.ndarray,
+    final_levels: np.ndarray,
+    leaf_levels: np.ndarray,
+    depth_cap: int,
+    root_level: int,
+) -> Tuple[Dict[int, _LevelNodes], np.ndarray]:
+    """Subtree variant of _group_device_levels for the out-of-core bucket
+    path: nodes are grouped for levels root_level+1..depth_cap, and the
+    points resting AT root_level (the bucket residual that the caller's top
+    pass continues from) are returned as a separate index array."""
+    groups = _level_groups(codes, final_levels, leaf_levels, depth_cap)
+    order_final, final_starts, occupied_by_level, leaf_paths_by_level = groups
+
+    node_paths: Dict[int, np.ndarray] = {}
+    carry = np.empty(0, dtype=np.uint64)
+    for level in range(depth_cap, root_level, -1):
+        node_paths[level] = np.union1d(carry, leaf_paths_by_level[level])
+        carry = np.unique(node_paths[level] >> np.uint64(3))
+
+    grouped: Dict[int, _LevelNodes] = {}
+    for level, paths in node_paths.items():
+        if len(paths) == 0:
+            continue
+        sel = order_final[final_starts[level] : final_starts[level + 1]]
+        counts = np.zeros(len(paths), dtype=np.int64)
+        occupied, occ_counts = occupied_by_level[level]
+        pos = np.searchsorted(paths, occupied)
+        counts[pos] = occ_counts
+        offsets = np.concatenate([[0], np.cumsum(counts)])
+        grouped[level] = _LevelNodes(paths=paths.astype(np.uint64),
+                                     offsets=offsets, idx=sel)
+    residual_idx = order_final[
+        final_starts[root_level] : final_starts[root_level + 1]
+    ]
+    return grouped, residual_idx
 
 
 # --- copied from point_cloud_viewer_tpu/octree/builder.py:996-1095 --------

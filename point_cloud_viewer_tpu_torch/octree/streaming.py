@@ -1,0 +1,701 @@
+"""Out-of-core octree build on a PyTorch device: clouds larger than RAM.
+
+Port of point_cloud_viewer_tpu/octree/streaming.py (its `use_device`
+route).  The in-core build needs ~90 bytes/point of headroom; this module
+bounds memory by an external Morton bucket partition:
+
+1. PASS 1 streams the input once for the bounding box;
+2. PASS 2 streams batches, Morton-encodes them and spills each point to
+   one of 8^B bucket files by its code's top 3B bits (buckets are level-B
+   subtrees, so no tree work crosses a bucket);
+3. each bucket is loaded, its subtree is derived on the device rooted at
+   the bucket's level-B node, and everything below level B is written; the
+   bucket root's residual (what survives promotion into it) is kept;
+4. the shallow top (levels <= B) is finished on the host from the
+   residuals.
+
+Output is byte-identical to the in-core build, and the spill marker, the
+`_done_b*.json/.npz` checkpoint records and the octree bytes have the JAX
+package's formats: a spill directory checkpointed by either package
+resumes in the other.
+
+Device pipeline (streaming.py:374-455): one bucket's derivation is kept in
+flight while the host finishes the bucket before it.  On CUDA the upload
+(pinned, non-blocking) and the derivation run on a stream of their own and
+never make the host wait (ops/tree_build.py); an event recorded after the
+launches is what `_finish_device_bucket` waits on before it fetches, on
+the current stream, into pinned buffers.  Completion is FIFO, so the bytes
+written and the checkpoint order are those of the sequential order.
+`phase_times` keeps the JAX package's keys, plus `buckets_derived`,
+`bucket_device_wait` and (CUDA) `bucket_device_busy`.
+
+Not ported yet (see ROADMAP.md): the host build (`use_device=False`) and
+deep builds past the 63-bit code budget; both raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import tempfile
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from point_cloud_viewer_tpu.core.constants import META_FILENAME, MAX_POINTS_PER_NODE
+from point_cloud_viewer_tpu.core.points_batch import PointsBatch
+from point_cloud_viewer_tpu.io.node_io import attempt_increasing_rlimit_to_max
+from point_cloud_viewer_tpu.math.geometry import Aabb, Cube
+from point_cloud_viewer_tpu.octree.node_id import MAX_FORMAT_LEVEL, NodeId
+from point_cloud_viewer_tpu.utils.progress import timed_phase as _timed_phase
+
+from ..ops import morton
+from .builder import (
+    BuildResult,
+    _group_subtree_levels,
+    _group_subtree_levels_from_level_order,
+    _LevelNodes,
+    _meta_proto,
+    _ranges_to_indices,
+    _subsample_bottom_up,
+    _write_levels,
+    compute_depth_cap,
+)
+
+
+def _iter_batches(data) -> Iterator[PointsBatch]:
+    if isinstance(data, PointsBatch):
+        yield data
+    else:
+        yield from data
+
+
+def _add(phase_times: Optional[dict], key: str, value: float) -> None:
+    if phase_times is not None:
+        phase_times[key] = phase_times.get(key, 0.0) + value
+
+
+# --- copied from point_cloud_viewer_tpu/octree/streaming.py:60-148 --------
+
+
+class _BucketSpill:
+    """Append-only per-bucket spill files (one .bin per array column)."""
+
+    def __init__(self, directory: str, num_buckets: int) -> None:
+        self.directory = directory
+        self.num_buckets = num_buckets
+        self.counts = np.zeros(num_buckets, dtype=np.int64)
+        self._schemas: Optional[List[Tuple[str, np.dtype, int]]] = None
+
+    def _path(self, bucket: int, name: str) -> str:
+        return os.path.join(self.directory, f"b{bucket:04d}.{name}")
+
+    def append(self, bucket_ids: np.ndarray, batch: PointsBatch) -> None:
+        if self._schemas is None:
+            self._schemas = [("position", np.dtype("<f8"), 3)] + [
+                (k, np.dtype(v.dtype).newbyteorder("<"),
+                 v.shape[1] if v.ndim == 2 else 1)
+                for k, v in batch.attributes.items()
+            ]
+        from point_cloud_viewer_tpu import native
+
+        if len(bucket_ids) == 0:  # e.g. a reader's trailing empty chunk
+            return
+        # Bucket ids span only 8^B values: one bincount pass gives both the
+        # run boundaries AND feeds the native stable counting scatter —
+        # identical order to a stable sort by id.
+        counts = np.bincount(bucket_ids, minlength=self.num_buckets)
+        order = native.counting_argsort(bucket_ids, counts)
+        if order is None:  # no native library: stable numpy sort
+            order = np.argsort(bucket_ids, kind="stable")
+        uniq = np.flatnonzero(counts)
+        ends = np.cumsum(counts[uniq])
+        starts = ends - counts[uniq]
+        arrays = {"position": batch.position, **batch.attributes}
+        for b, s, e in zip(uniq, starts, ends):
+            sel = order[s:e]
+            for name, dt, _ in self._schemas:
+                part = native.take_rows(arrays[name], sel)
+                if part is None:
+                    part = arrays[name][sel]
+                if part.dtype != dt:
+                    part = part.astype(dt)
+                with open(self._path(int(b), name), "ab") as f:
+                    part.tofile(f)
+            self.counts[int(b)] += e - s
+
+    def load(self, bucket: int) -> Optional[PointsBatch]:
+        if self.counts[bucket] == 0:
+            return None
+        arrays = {}
+        for name, dt, dim in self._schemas:
+            raw = np.fromfile(self._path(bucket, name), dtype=dt)
+            arrays[name] = raw.reshape(-1, dim) if dim > 1 else raw
+        position = arrays.pop("position")
+        return PointsBatch(position=position, attributes=arrays)
+
+    def delete(self, bucket: int) -> None:
+        for name, _, _ in self._schemas or []:
+            try:
+                os.remove(self._path(bucket, name))
+            except FileNotFoundError:
+                pass
+
+
+_SPILL_MARKER = "_spill_complete.json"
+
+
+def _checkpoint_params(resolution, bounding_box, b_levels, depth_cap,
+                       attributes, total_cap) -> dict:
+    return {
+        "resolution": float(resolution),
+        "bbox_min": [float(v) for v in bounding_box.mins],
+        "bbox_max": [float(v) for v in bounding_box.maxs],
+        "bucket_levels": int(b_levels),
+        "depth_cap": int(depth_cap),
+        "total_cap": int(total_cap),
+        "attributes": sorted(attributes) if attributes is not None else None,
+    }
+
+
+def _bucket_done_paths(spill_dir: str, bucket: int):
+    base = os.path.join(spill_dir, f"_done_b{bucket:04d}")
+    return base + ".json", base + ".npz"
+
+
+# --- the build (mirrors streaming.py:151-475) ------------------------------
+
+
+def build_octree_streaming(
+    output_directory: str,
+    resolution: float,
+    data: Union[PointsBatch, Iterable[PointsBatch]],
+    bounding_box: Optional[Aabb] = None,
+    attributes: Optional[Sequence[str]] = None,
+    bucket_levels: int = 2,
+    spill_directory: Optional[str] = None,
+    use_device: bool = True,
+    phase_times: Optional[dict] = None,
+    device="cuda",
+) -> BuildResult:
+    """Bounded-memory build: peak RAM ~ the largest bucket (~N/8^B for
+    spatially spread data) instead of the whole cloud.
+
+    `data` may be a PointsBatch or any iterator of batches (e.g. PlyReader);
+    for iterator input, `bounding_box` must be supplied OR the iterator must
+    be re-iterable (it is streamed twice).
+
+    CHECKPOINT/RESUME: with an explicit `spill_directory`, the spill pass
+    writes a completion marker and every finished bucket subtree persists
+    its residual + recorded nodes before its spill files are deleted.
+    Re-running the same call after a crash skips the spill pass and the
+    finished buckets; the result is byte-identical to an uninterrupted
+    build.
+
+    `use_device`: each bucket's subtree derivation (sort + leaf assignment
+    + LOD promotion) runs on `device` ("cuda", or "cpu" for the kernels'
+    plain PyTorch versions); the only route ported so far (False raises).
+    Codes go up at 8 B/pt; the grouped exchange comes down at ~4 B/pt.
+    `phase_times` accumulates wall seconds per phase and the bytes moved
+    (`bucket_upload_bytes`, `bucket_fetch_bytes`)."""
+    from ..device import resolve_device
+
+    if not use_device:
+        raise NotImplementedError(
+            "host build (use_device=False) not yet ported, see ROADMAP"
+        )
+    dev = resolve_device(device)
+    attempt_increasing_rlimit_to_max()
+    os.makedirs(output_directory, exist_ok=True)
+
+    if (
+        bounding_box is None
+        and not isinstance(data, PointsBatch)
+        and iter(data) is data
+    ):
+        # A one-shot iterator would be exhausted by the bbox pass and the
+        # spill pass would then see nothing — a silently empty octree.
+        raise ValueError(
+            "data is a one-shot iterator: pass bounding_box= explicitly or "
+            "provide a re-iterable input (the stream is read twice)"
+        )
+
+    if bounding_box is None:
+        if isinstance(data, PointsBatch):
+            bounding_box = Aabb.bounding_points(data.position)
+        else:
+            for b in _iter_batches(data):
+                if attributes is not None and bounding_box is None:
+                    # First batch: fail a typo'd attribute name before the
+                    # (potentially hours-long) bbox + spill passes.
+                    missing = [a for a in attributes if a not in b.attributes]
+                    if missing:
+                        raise ValueError(
+                            f"requested attributes not in input: {missing}"
+                        )
+                bb = Aabb.bounding_points(b.position)
+                if bounding_box is None:
+                    bounding_box = bb
+                else:
+                    bounding_box.grow(bb.mins)
+                    bounding_box.grow(bb.maxs)
+            if bounding_box is None:
+                bounding_box = Aabb.zero()
+    root_cube = Cube.bounding(bounding_box)
+
+    total_cap = compute_depth_cap(
+        root_cube.edge_length, resolution, max_level=MAX_FORMAT_LEVEL
+    )
+    if total_cap > morton.MAX_DEPTH:
+        # streaming.py:226-233, 551-596: past the 63-bit code budget the
+        # JAX package splits fat level-21 cells by re-rooted sub-builds.
+        raise NotImplementedError(
+            f"deep build (depth cap {total_cap} > {morton.MAX_DEPTH}) "
+            "not yet ported, see ROADMAP"
+        )
+    depth_cap = total_cap
+    b_levels = min(bucket_levels, depth_cap - 1)
+    num_buckets = 8**b_levels
+
+    spill_dir = spill_directory or tempfile.mkdtemp(prefix="octree_spill_")
+    os.makedirs(spill_dir, exist_ok=True)
+    spill = _BucketSpill(spill_dir, num_buckets)
+
+    params = _checkpoint_params(
+        resolution, bounding_box, b_levels, depth_cap, attributes, total_cap
+    )
+    marker_path = os.path.join(spill_dir, _SPILL_MARKER)
+    resumed = False
+    if spill_directory is not None and os.path.exists(marker_path):
+        try:
+            with open(marker_path) as f:
+                marker = json.load(f)
+        except (json.JSONDecodeError, OSError):
+            marker = {}  # truncated by a crash mid-write: clean slate below
+        marker_params = marker.get("params")
+        if isinstance(marker_params, dict) and "total_cap" not in marker_params:
+            # Checkpoint written before total_cap existed: such builds were
+            # always non-deep (total_cap == depth_cap), as every build here.
+            marker_params = {**marker_params, "total_cap": params["depth_cap"]}
+        if marker_params == params:
+            # Resume: the spill pass already completed for this exact build.
+            total = int(marker["total"])
+            spill.counts = np.asarray(marker["counts"], dtype=np.int64)
+            spill._schemas = [
+                (name, np.dtype(dt), int(dim))
+                for name, dt, dim in marker["schemas"]
+            ]
+            resumed = True
+        elif "params" in marker:
+            raise ValueError(
+                f"spill directory {spill_dir} holds a checkpoint for a "
+                "DIFFERENT build (params mismatch); use a fresh directory"
+            )
+        # else: corrupt/unparseable marker == no checkpoint -> clean slate.
+
+    # --- PASS 2: spill by top bucket bits ----------------------------------
+    if not resumed:
+        # A crash DURING a previous spill pass leaves partial append-only
+        # bucket files with no marker; appending onto them would duplicate
+        # points.  Start from a clean slate, removing only our own files.
+        ours = re.compile(r"^(b\d{4,}\..+|_done_b\d{4,}\.(json|npz))$")
+        for name in os.listdir(spill_dir):
+            if ours.match(name) or name == _SPILL_MARKER:
+                try:
+                    os.remove(os.path.join(spill_dir, name))
+                except OSError:
+                    pass
+        total = 0
+        with _timed_phase(phase_times, "spill"):
+            for batch in _iter_batches(data):
+                if attributes is not None:
+                    missing = [a for a in attributes if a not in batch.attributes]
+                    if missing:
+                        raise ValueError(
+                            f"requested attributes not in input: {missing}"
+                        )
+                    batch = PointsBatch(
+                        position=batch.position,
+                        attributes={a: batch.attributes[a] for a in attributes},
+                    )
+                codes, _ = morton.quantize_and_encode(
+                    batch.position, root_cube.min, root_cube.edge_length,
+                    depth_cap,
+                )
+                buckets = (
+                    codes >> np.uint64(3 * (depth_cap - b_levels))
+                ).astype(np.int64)
+                spill.append(buckets, batch)
+                total += len(batch)
+        if spill_directory is not None:
+            # Atomic: a crash mid-write must not leave truncated JSON.
+            tmp = marker_path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump({
+                    "params": params,
+                    "total": total,
+                    "counts": [int(c) for c in spill.counts],
+                    "schemas": [
+                        (name, dt.str, int(dim))
+                        for name, dt, dim in (spill._schemas or [])
+                    ],
+                }, f)
+            os.replace(tmp, marker_path)
+
+    if total == 0:
+        meta = _meta_proto(resolution, bounding_box, [])
+        with open(os.path.join(output_directory, META_FILENAME), "wb") as f:
+            f.write(meta.encode())
+        shutil.rmtree(spill_dir, ignore_errors=True)
+        return BuildResult(output_directory, root_cube, resolution, bounding_box, [], 0)
+
+    # --- top structure from aggregated bucket counts -----------------------
+    top_leaf_of_bucket, split_b = top_structure(
+        spill.counts, b_levels, root_cube, resolution, depth_cap
+    )
+
+    # --- per-bucket subtree builds -----------------------------------------
+    checkpointing = spill_directory is not None
+    recorded: List[Tuple[NodeId, int]] = []
+    # (level, batch) pairs feeding the top pass: bucket residuals at level B
+    # and whole point sets of shallow leaves.
+    top_inputs: List[Tuple[int, PointsBatch]] = []
+
+    def _record_bucket(bkt: int, residual: PointsBatch, nodes) -> None:
+        recorded.extend(nodes)
+        top_inputs.append((b_levels, residual))
+        if checkpointing:
+            # Persist residual + recorded nodes BEFORE deleting the spill:
+            # a crash in between just reprocesses this bucket.
+            dj, dn = _bucket_done_paths(spill_dir, bkt)
+            with open(dn + ".tmp", "wb") as f:
+                np.savez(
+                    f, position=residual.position,
+                    **{f"attr_{k}": v for k, v in residual.attributes.items()},
+                )
+            os.replace(dn + ".tmp", dn)
+            tmp = dj + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(
+                    {"nodes": [[str(nid.value), c] for nid, c in nodes]}, f
+                )
+            os.replace(tmp, dj)  # json presence = record complete
+        spill.delete(bkt)
+
+    # One stream for every bucket's upload + derivation; None on the CPU.
+    stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    inflight: List[Tuple[int, PointsBatch, tuple]] = []
+
+    def _complete_oldest() -> None:
+        bkt, bbatch, state = inflight.pop(0)
+        residual, nodes = _finish_device_bucket(
+            output_directory, bbatch, state, root_cube, resolution,
+            depth_cap, b_levels, phase_times,
+        )
+        _record_bucket(bkt, residual, nodes)
+
+    for bucket in range(num_buckets):
+        if spill.counts[bucket] == 0:
+            continue
+        leaf_lvl = int(top_leaf_of_bucket[bucket])
+        if leaf_lvl >= 0 or bucket not in split_b:
+            # No subtree work: the whole bucket feeds the top pass.  Its
+            # spill files stay until the very end when checkpointing (the
+            # top pass is redone on resume).
+            bucket_batch = spill.load(bucket)
+            if not checkpointing:
+                spill.delete(bucket)
+            top_inputs.append(
+                (leaf_lvl if leaf_lvl >= 0 else b_levels, bucket_batch)
+            )
+            continue
+
+        done_json, done_npz = _bucket_done_paths(spill_dir, bucket)
+        done_valid = False
+        if checkpointing and os.path.exists(done_json):
+            try:
+                with open(done_json) as f:
+                    done = json.load(f)
+                done_valid = True
+            except (json.JSONDecodeError, OSError):
+                done_valid = False  # crashed mid-write: rebuild this bucket
+        if done_valid:
+            # Resume: this bucket's subtree is already on disk.
+            recorded.extend(
+                (NodeId(int(v)), int(c)) for v, c in done["nodes"]
+            )
+            payload = np.load(done_npz)
+            residual = PointsBatch(
+                position=payload["position"],
+                attributes={
+                    k[5:]: payload[k]
+                    for k in payload.files if k.startswith("attr_")
+                },
+            )
+            top_inputs.append((b_levels, residual))
+            continue
+
+        with _timed_phase(phase_times, "bucket_load"):
+            bucket_batch = spill.load(bucket)
+        state = _dispatch_device_bucket(
+            bucket_batch, root_cube, depth_cap, b_levels, phase_times, dev,
+            stream,
+        )
+        inflight.append((bucket, bucket_batch, state))
+        if len(inflight) > 1:
+            _complete_oldest()
+    while inflight:
+        _complete_oldest()
+
+    # --- shallow top: levels b_levels..0 ------------------------------------
+    with _timed_phase(phase_times, "top"):
+        top_nodes = _finish_top(
+            output_directory, top_inputs, root_cube, resolution, depth_cap
+        )
+    recorded.extend(top_nodes)
+
+    meta = _meta_proto(resolution, bounding_box, recorded)
+    with open(os.path.join(output_directory, META_FILENAME), "wb") as f:
+        f.write(meta.encode())
+    # Success: the checkpoint is only cleared now, so a crash anywhere
+    # above (the top pass and meta write included) resumes.
+    shutil.rmtree(spill_dir, ignore_errors=True)
+    return BuildResult(
+        output_directory, root_cube, resolution, bounding_box, recorded, total_cap
+    )
+
+
+# --- copied from point_cloud_viewer_tpu/octree/streaming.py:478-520 -------
+
+
+def top_structure(
+    bucket_counts: np.ndarray,
+    b_levels: int,
+    root_cube: Cube,
+    resolution: float,
+    depth_cap: int,
+) -> Tuple[np.ndarray, set]:
+    """Exact split structure for levels 0..B from per-level-B-cell point
+    counts: a node above the bucket level may itself be a leaf, so decide
+    splits from the (exact) aggregated counts the way the in-memory builder
+    would.  Returns (top_leaf_of_bucket (8^B,) int64 — the shallow leaf
+    level covering each bucket, -1 where the bucket's level-B node splits
+    further — and split_b, the set of level-B paths that split)."""
+    num_buckets = 8**b_levels
+    top_leaf_of_bucket = np.full(num_buckets, -1, dtype=np.int64)  # leaf level
+    split = {0: np.zeros(1, dtype=np.uint64)}  # root always splits
+    level_counts = {
+        lvl: np.add.reduceat(
+            bucket_counts, np.arange(0, num_buckets, 8 ** (b_levels - lvl))
+        )
+        for lvl in range(b_levels + 1)
+    }
+    for lvl in range(1, b_levels + 1):
+        parent_split = split[lvl - 1]
+        children = (parent_split[:, None] << np.uint64(3)) | np.arange(8, dtype=np.uint64)
+        children = children.ravel()
+        counts = level_counts[lvl][children.astype(np.int64)]
+        nonempty = counts > 0
+        edge = root_cube.edge_length / (1 << lvl)
+        can_split = lvl < depth_cap and edge > resolution
+        is_leaf = nonempty & ((counts <= MAX_POINTS_PER_NODE) | (not can_split))
+        # Mark buckets under each leaf.
+        for path in children[is_leaf]:
+            span = 8 ** (b_levels - lvl)
+            start = int(path) * span
+            top_leaf_of_bucket[start : start + span] = lvl
+        split[lvl] = children[nonempty & ~is_leaf]
+    split_b = set(int(p) for p in split.get(b_levels, []))
+    return top_leaf_of_bucket, split_b
+
+
+# --- the device bucket pipeline (mirrors streaming.py:631-746) -------------
+
+
+def _dispatch_device_bucket(
+    batch: PointsBatch,
+    root_cube: Cube,
+    depth_cap: int,
+    bucket_level: int,
+    phase_times: Optional[dict],
+    device: torch.device,
+    stream: Optional["torch.cuda.Stream"],
+) -> tuple:
+    """Quantize + launch one bucket's device derivation WITHOUT waiting:
+    returns (codes_unsorted, the device GroupedExchange, and on CUDA the
+    events recorded before the upload and after the launches, else
+    None)."""
+    from ..ops.tree_build import tree_codes_grouped_on_device
+
+    with _timed_phase(phase_times, "bucket_quantize"):
+        codes_unsorted, _ = morton.quantize_and_encode(
+            batch.position, root_cube.min, root_cube.edge_length, depth_cap
+        )
+    with _timed_phase(phase_times, "bucket_device_dispatch"):
+        with torch.cuda.stream(stream):
+            events = None
+            if stream is not None:
+                events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                events[0].record(stream)
+            out = tree_codes_grouped_on_device(
+                codes_unsorted, depth_cap, depth_cap,
+                root_level=bucket_level, stop_level=bucket_level,
+                device=device,
+            )
+            if events is not None:
+                events[1].record(stream)
+    _add(phase_times, "buckets_derived", 1)
+    _add(phase_times, "bucket_upload_bytes", codes_unsorted.nbytes)
+    return codes_unsorted, out, events
+
+
+def _finish_device_bucket(
+    output_directory: str,
+    batch: PointsBatch,
+    state: tuple,
+    root_cube: Cube,
+    resolution: float,
+    depth_cap: int,
+    bucket_level: int,
+    phase_times: Optional[dict],
+) -> Tuple[PointsBatch, List[Tuple[NodeId, int]]]:
+    """Wait for a dispatched bucket derivation, fetch it, then group +
+    encode + write its subtree (host side).
+
+    Fast path: order2 (4 B/pt) + per-level counts + the 1-point-leaf
+    extras, grouped from run boundaries on the host.  Fallback (extras
+    overflow): the classic (idx, final, leaf) arrays.  The host's time
+    blocked on the event is `bucket_device_wait`, a part of
+    `bucket_device_derive`; on CUDA, `bucket_device_busy` adds the card's
+    time from upload to the derivation's end, so wait / busy is the share
+    of device work the host did not hide."""
+    from ..ops.tree_build import fetch_grouped
+
+    codes_unsorted, out, events = state
+    with _timed_phase(phase_times, "bucket_device_derive"):
+        with _timed_phase(phase_times, "bucket_device_wait"):
+            if events is not None:
+                events[1].synchronize()
+        got = fetch_grouped(out)
+        del out
+    if events is not None:
+        _add(phase_times, "bucket_device_busy",
+             events[0].elapsed_time(events[1]) / 1e3)
+    _add(phase_times, "bucket_fetch_bytes", got.nbytes)
+    with _timed_phase(phase_times, "bucket_group"):
+        if got.overflow:
+            order = got.idx
+            final_nodes, residual_idx = _group_subtree_levels(
+                codes_unsorted[order], got.final, got.leaf, depth_cap,
+                bucket_level,
+            )
+        else:
+            order = got.order2
+            final_nodes, residual_idx = _group_subtree_levels_from_level_order(
+                codes_unsorted, order, got.level_counts, got.extras_idx,
+                got.extras_level, depth_cap, bucket_level,
+            )
+    with _timed_phase(phase_times, "bucket_encode_write"):
+        nodes = _write_levels(
+            output_directory, final_nodes, batch, order, root_cube,
+            resolution,
+        )
+    return batch.take(order[residual_idx]), nodes
+
+
+# --- copied from point_cloud_viewer_tpu/octree/streaming.py:749-849 -------
+
+
+def _discover_subtree_levels(
+    codes, n, depth_cap, root_edge, resolution, bucket_path, bucket_level,
+) -> Dict[int, _LevelNodes]:
+    """Like builder._discover_levels but rooted at the level-B bucket node
+    (which is treated as split unconditionally; its residual is handled by
+    the top pass), over SORTED codes.
+
+    The split discovery of the JAX package's host bucket path; the device
+    path above does not call it.  The tests hold the device derivation's
+    grouping to it.  (The JAX function's `raw_codes` serves deep builds,
+    which are not ported yet.)"""
+    leaf_acc: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+    split_paths = np.array([bucket_path], dtype=np.uint64)
+    split_ends = np.full(1, n, dtype=np.int64)
+
+    for level in range(bucket_level + 1, depth_cap + 1):
+        k = len(split_paths)
+        shift = np.uint64(3 * (depth_cap - level))
+        child_paths = (split_paths[:, None] << np.uint64(3)) | np.arange(8, dtype=np.uint64)
+        bounds = child_paths << shift
+        starts = np.searchsorted(codes, bounds.ravel(), side="left").astype(np.int64)
+        ends = np.concatenate(
+            [starts.reshape(k, 8)[:, 1:], split_ends[:, None]], axis=1
+        ).ravel()
+        counts = ends - starts
+        nonempty = counts > 0
+        edge = root_edge / (1 << level)
+        can_split = level < depth_cap and edge > resolution
+        is_leaf = nonempty & (counts <= MAX_POINTS_PER_NODE) if can_split else nonempty
+        if is_leaf.any():
+            leaf_acc[level] = (
+                child_paths.ravel()[is_leaf],
+                np.stack([starts[is_leaf], ends[is_leaf]], axis=1),
+            )
+        splitting = nonempty & ~is_leaf
+        split_paths = child_paths.ravel()[splitting]
+        split_ends = ends[splitting]
+        if len(split_paths) == 0:
+            break
+
+    out: Dict[int, _LevelNodes] = {}
+    for level, (paths, ranges) in leaf_acc.items():
+        counts = ranges[:, 1] - ranges[:, 0]
+        out[level] = _LevelNodes(
+            paths=paths,
+            offsets=np.concatenate([[0], np.cumsum(counts)]),
+            idx=_ranges_to_indices(ranges),
+        )
+    return out
+
+
+def _finish_top(
+    output_directory: str,
+    top_inputs: List[Tuple[int, PointsBatch]],
+    root_cube: Cube,
+    resolution: float,
+    depth_cap: int,
+) -> List[Tuple[NodeId, int]]:
+    """Finish the shallow levels: inputs are (node_level, points) pairs —
+    bucket residuals at the bucket level and whole shallow-leaf point sets.
+    Promotion then proceeds upward exactly like the in-memory builder."""
+    top_inputs = [(lvl, b) for lvl, b in top_inputs if len(b)]
+    if not top_inputs:
+        return []
+    top = PointsBatch.concatenate([b for _, b in top_inputs])
+    node_levels = np.concatenate(
+        [np.full(len(b), lvl, dtype=np.int64) for lvl, b in top_inputs]
+    )
+    codes, _ = morton.quantize_and_encode(
+        top.position, root_cube.min, root_cube.edge_length, depth_cap
+    )
+    codes, order = morton.argsort_codes(codes)
+    node_levels = node_levels[order]
+
+    level_nodes: Dict[int, _LevelNodes] = {}
+    for lvl in np.unique(node_levels):
+        lvl = int(lvl)
+        sel = np.nonzero(node_levels == lvl)[0]
+        prefixes = codes[sel] >> np.uint64(3 * (depth_cap - lvl))
+        paths, counts = np.unique(prefixes, return_counts=True)
+        level_nodes[lvl] = _LevelNodes(
+            paths=paths.astype(np.uint64),
+            offsets=np.concatenate([[0], np.cumsum(counts)]),
+            idx=sel.astype(np.int64),
+        )
+    final_nodes = _subsample_bottom_up(level_nodes)
+    return _write_levels(
+        output_directory, final_nodes, top, order, root_cube, resolution
+    )

@@ -56,6 +56,11 @@ _SIGNATURES = {
     "pcv_promote": (
         [c_void_p, c_void_p, c_longlong, c_int, c_void_p, c_void_p], c_int,
     ),
+    "pcv_leaf_levels": (
+        [c_void_p, c_void_p, c_longlong, c_int, c_int, c_int, c_void_p,
+         c_void_p],
+        c_int,
+    ),
     "pcv_cull_max_axes": ([], c_int),
     "pcv_cull": (
         [c_void_p, c_void_p, c_void_p, c_void_p, c_int, c_int, c_void_p,

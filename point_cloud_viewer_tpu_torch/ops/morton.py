@@ -131,13 +131,18 @@ def join_u64(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
 # Device hand-off (new in the port)
 
 
-def codes_to_tensor(codes_u64: np.ndarray, device) -> torch.Tensor:
-    """Host uint64 Morton codes (< 2^63) -> non-negative int64 tensor on
-    `device`.  The bit pattern is reinterpreted, not converted."""
+def check_codes(codes_u64: np.ndarray) -> np.ndarray:
+    """Contiguous uint64 codes; raises unless every code is < 2^63."""
     codes_u64 = np.ascontiguousarray(codes_u64, dtype=np.uint64)
     if len(codes_u64) and int(codes_u64.max()) >> 63:
         raise ValueError("Morton codes must fit in 63 bits")
-    return torch.from_numpy(codes_u64.view(np.int64)).to(device)
+    return codes_u64
+
+
+def codes_to_tensor(codes_u64: np.ndarray, device) -> torch.Tensor:
+    """Host uint64 Morton codes (< 2^63) -> non-negative int64 tensor on
+    `device`.  The bit pattern is reinterpreted, not converted."""
+    return torch.from_numpy(check_codes(codes_u64).view(np.int64)).to(device)
 
 
 def from_jax_halves(hi: np.ndarray, lo: np.ndarray) -> torch.Tensor:

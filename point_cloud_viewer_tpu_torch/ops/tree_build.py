@@ -18,16 +18,22 @@ order of JAX's unstable 3-key sort over (hi, lo, idx) (tree_build.py:460,
 :608), because idx is unique.  The per-level sweeps are the fused kernels
 K2-K4 (ops/level_cuda) and the extras rank runs through K1
 (ops/scan_cuda); CPU tensors take their plain PyTorch versions.
+
+Between the upload and the fetch nothing reads the card from the host (no
+`.item()`, no `bincount`, no test for an empty level), so a caller can
+keep a derivation in flight while the host works (octree/streaming.py).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from point_cloud_viewer_tpu.core.constants import MAX_POINTS_PER_NODE
 
+from . import morton
 from .level_cuda import leaf_update_pass, promote_pass, seg_start_pass
 from .scan_cuda import scan_1d
 
@@ -71,8 +77,10 @@ def _bound_levels(codes: torch.Tensor, depth: int,
         .clamp_min(0),
     ).to(torch.uint8)
     if n_real is not None and n_real < n:
-        b[n_real] = 0
-        b[n_real + 1:] = depth + 1
+        # fill_ on views: a scalar assignment would copy a host scalar up
+        # and synchronise.
+        b[n_real:n_real + 1].fill_(0)
+        b[n_real + 1:].fill_(depth + 1)
     return b
 
 
@@ -102,10 +110,10 @@ def _assign_and_promote(codes: torch.Tensor, depth: int, max_split_level: int,
                          max_points_per_node)
     cur = leaf.clone()
     for level in range(max_split_level, stop_level, -1):
-        # One host sync per level, as jnp.any at tree_build.py:232 decides
-        # the lax.cond; capturing the loop in a CUDA graph is later work.
-        if bool((cur == level).any()):
-            promote_pass(b, cur, level)
+        # Every level is swept: K4 on a level with no resident point changes
+        # nothing, so the host never asks the card which levels are empty
+        # (the lax.cond on jnp.any at tree_build.py:232 is a host sync here).
+        promote_pass(b, cur, level)
     return leaf, cur
 
 
@@ -194,11 +202,17 @@ def build_tree_device_codes_grouped(
 
     # Pad rows sort after every real row whatever their own promotion.
     key = cur.clone()
-    key[n_real:] = max_split_level + 1
+    key[n_real:].fill_(max_split_level + 1)
     # A stable sort on key equals the JAX sort by (key, pos) (:622-625).
-    order2 = idx[torch.sort(key, stable=True).indices]
-    level_counts = torch.bincount(
-        key, minlength=max_split_level + 2).to(torch.int32)
+    sorted_key, by_key = torch.sort(key, stable=True)
+    order2 = idx[by_key]
+    # Per-level counts from the run bounds of the sorted key (the JAX
+    # segment_sum, :627): no atomics, and no host read of the key's maximum
+    # as torch.bincount makes on CUDA.
+    bounds = torch.searchsorted(
+        sorted_key.to(torch.int32),
+        torch.arange(max_split_level + 3, dtype=torch.int32, device=dev))
+    level_counts = torch.diff(bounds).to(torch.int32)
 
     # --- 1-point-leaf extras over the code-sorted order (:631-656) -------
     # Adjacent points share a leaf iff same leaf level AND same code prefix
@@ -208,20 +222,119 @@ def build_tree_device_codes_grouped(
         (sorted_codes[1:] >> shift) == (sorted_codes[:-1] >> shift))
     run_start = torch.cat([same.new_ones(1), ~same])
     if n_real < n:
-        run_start[n_real] = True  # the pad run never joins a real run
+        run_start[n_real:n_real + 1].fill_(True)  # the pad run is its own
     next_start = torch.cat([run_start[1:], run_start.new_ones(1)])
     sole = run_start & next_start
-    sole[n_real:] = False
+    sole[n_real:].fill_(False)
 
     # _scan (tree_build.py:97-124): on CUDA always the K1 kernel (no size
     # gate yet: an H100 measurement sets one later).
     rank = scan_1d(sole.to(torch.int32), "sum") - 1
     extras_total = rank[-1] + 1
     slot = torch.where(sole & (rank < extras_cap), rank, extras_cap).long()
+    # Each kept rank owns one slot; every other row lands in the spill slot
+    # extras_cap, which is cut off.
     extras_idx = torch.zeros(extras_cap + 1, dtype=torch.int32, device=dev)
-    extras_idx[slot] = idx
+    extras_idx.scatter_(0, slot, idx)
     extras_level = torch.zeros(extras_cap + 1, dtype=torch.uint8, device=dev)
-    extras_level[slot] = leaf
+    extras_level.scatter_(0, slot, leaf)
     return GroupedExchange(order2, level_counts, extras_idx[:extras_cap],
                            extras_level[:extras_cap], extras_total, idx, cur,
                            leaf)
+
+
+def upload_codes(codes_u64, device: torch.device) -> torch.Tensor:
+    """Host uint64 Morton codes (< 2^63) -> int64 tensor on `device`.
+
+    On CUDA the codes go through a pinned staging buffer and a
+    non-blocking copy on the current stream: a pageable `.to("cuda")`
+    would hold the host until the copy ends.  The caching host allocator
+    keeps the staging block until that copy has run."""
+    if device.type != "cuda":
+        return morton.codes_to_tensor(codes_u64, device)
+    codes = morton.check_codes(codes_u64)
+    staging = torch.empty(len(codes), dtype=torch.int64, pin_memory=True)
+    staging.numpy()[:] = codes.view(np.int64)
+    return staging.to(device, non_blocking=True)
+
+
+def tree_codes_grouped_on_device(
+    codes_u64,            # (N,) host uint64 Morton codes (unsorted, < 2^63)
+    depth: int,
+    max_split_level: int,
+    *,
+    root_level: int = 0,
+    stop_level: int = 0,
+    device,
+    extras_cap: Optional[int] = None,
+    max_points_per_node: int = MAX_POINTS_PER_NODE,
+) -> GroupedExchange:
+    """Upload host codes and launch the grouped derivation on `device`'s
+    current stream; returns at once, without waiting for the card.
+
+    The port of tree_codes_grouped_on_device_padded (tree_build.py:663-
+    686) without the padding: the JAX size ladder only bounds XLA's
+    compiles, and PyTorch compiles nothing per shape.  Nothing between the
+    upload and the caller's fetch reads the card from the host.
+    `extras_cap` defaults to max(512, n >> 6), as the in-core build."""
+    n = len(codes_u64)
+    if extras_cap is None:
+        extras_cap = max(512, n >> 6)
+    return build_tree_device_codes_grouped(
+        upload_codes(codes_u64, torch.device(device)), n, depth,
+        max_split_level, max_points_per_node=max_points_per_node,
+        root_level=root_level, stop_level=stop_level, extras_cap=extras_cap,
+    )
+
+
+class HostExchange(NamedTuple):
+    """The grouped exchange as fetched: the fast arrays, or on extras
+    overflow the classic code-sorted ones (the others are None)."""
+
+    overflow: bool
+    order2: Optional[np.ndarray]        # int64
+    level_counts: Optional[np.ndarray]  # int32
+    extras_idx: Optional[np.ndarray]    # int64, extras_total entries
+    extras_level: Optional[np.ndarray]  # uint8
+    idx: Optional[np.ndarray]           # int64
+    final: Optional[np.ndarray]         # uint8
+    leaf: Optional[np.ndarray]          # uint8
+    nbytes: int                         # bytes moved to the host
+
+
+def fetch_grouped(out: GroupedExchange) -> HostExchange:
+    """Bring a finished grouped exchange to the host (builder.py:220-231,
+    streaming.py:700-724): extras_total first, so only one of the two
+    exchanges is moved.  On CUDA the arrays are copied on the current
+    stream into pinned buffers, then that stream is waited on; the caller
+    has made sure the derivation is done (same stream, or an event)."""
+    dev = out.order2.device
+    extras_total = int(out.extras_total)
+    overflow = extras_total > out.extras_idx.shape[0]
+    if overflow:
+        tensors = (out.idx, out.final, out.leaf)
+    else:
+        tensors = (out.order2, out.level_counts,
+                   out.extras_idx[:extras_total],
+                   out.extras_level[:extras_total])
+    if dev.type == "cuda":
+        stream = torch.cuda.current_stream(dev)
+        host = []
+        for t in tensors:
+            t.record_stream(stream)  # made on the derivation's stream
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            host.append(h)
+        stream.synchronize()
+    else:
+        host = tensors
+    arrays = [h.numpy() for h in host]
+    nbytes = 4 + sum(a.nbytes for a in arrays)
+    if overflow:
+        idx, final, leaf = arrays
+        return HostExchange(True, None, None, None, None,
+                            idx.astype(np.int64), final, leaf, nbytes)
+    order2, counts, e_idx, e_level = arrays
+    return HostExchange(False, order2.astype(np.int64), counts,
+                        e_idx.astype(np.int64), e_level, None, None, None,
+                        nbytes)

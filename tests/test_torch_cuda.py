@@ -212,3 +212,126 @@ def test_cull_session_on_card_matches_cpu(cuda):
         assert _same(torch.from_numpy(a), torch.from_numpy(b))
     assert CC.cull_lod.launches == before + len(frustums) + 1
     assert card.a_cap == cpu.a_cap > 8
+
+
+# --- K6 and the sync-free derivation ---------------------------------------
+
+
+def _k6_codes(n, seed, kind="mixed"):
+    rng = np.random.default_rng(seed)
+    if kind == "dups":  # one run of a single code
+        codes = np.full(n, rng.integers(0, 2**63, dtype=np.uint64))
+    else:
+        codes = rng.integers(0, 2**63, n, dtype=np.uint64)
+        codes[: n // 3] = codes[0] & ~np.uint64(2**30 - 1) | rng.integers(
+            0, 2**30, n // 3, dtype=np.uint64)
+        codes[n // 3: n // 3 + n // 10] = np.uint64(2**63 - 1)
+    return torch.sort(torch.from_numpy(codes.view(np.int64))).values
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 8191, 8193, 1_000_003])
+def test_leaf_levels_kernel_matches_plain(cuda, n):
+    from point_cloud_viewer_tpu_torch.ops import leaf_levels_cuda as K6
+
+    codes = _k6_codes(n, n).to(cuda)
+    before = K6.leaf_levels.launches
+    for t in (1, 100, 5_000):
+        got = K6.leaf_levels(codes, 21, 21, t)
+        assert torch.equal(got, K6.leaf_levels_plain(codes, 21, 21, t))
+        core = tb.build_tree_device_codes_grouped(codes, n, 21, 21, t)
+        assert torch.equal(got, core.leaf.to(torch.int32))
+    assert K6.leaf_levels.launches == before + 3
+
+
+@pytest.mark.parametrize("n,t", [(5000, 0), (5000, 4999), (5000, 5000),
+                                 (9000, 2**40)])
+def test_leaf_levels_kernel_one_run_and_threshold_extremes(cuda, n, t):
+    from point_cloud_viewer_tpu_torch.ops import leaf_levels_cuda as K6
+
+    for kind in ("dups", "mixed"):
+        codes = _k6_codes(n, 7, kind).to(cuda)
+        for depth, max_split in ((21, 21), (9, 13), (21, 5)):
+            got = K6.leaf_levels(codes, depth, max_split, t)
+            want = K6.leaf_levels_plain(codes, depth, max_split, t)
+            assert torch.equal(got, want), (kind, depth, max_split)
+
+
+def test_derivation_makes_no_host_sync(cuda):
+    """Between upload and fetch the derivation never waits on the card."""
+    rng = np.random.default_rng(11)
+    cells = rng.integers(0, 2**21, (300_000, 3)).astype(np.uint32)
+    cells[::4] = cells[1]
+    codes = morton.morton_encode(cells)
+    on_card = morton.codes_to_tensor(codes, cuda)
+    # Warm up: the kernel library, the allocators and the sort.
+    tb.fetch_grouped(tb.tree_codes_grouped_on_device(codes, 21, 21,
+                                                     device=cuda))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = tb.build_tree_device_codes_grouped(on_card, len(codes) - 7, 21,
+                                                 21, 1000, extras_cap=4096)
+        out2 = tb.tree_codes_grouped_on_device(codes, 21, 21, root_level=1,
+                                               stop_level=1, device=cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = tb.build_tree_device_codes_grouped(
+        morton.codes_to_tensor(codes, "cpu"), len(codes) - 7, 21, 21, 1000,
+        extras_cap=4096)
+    for name, g, w in zip(tb.GroupedExchange._fields, out, want):
+        assert torch.equal(g.cpu(), w), name
+    want2 = tb.tree_codes_grouped_on_device(codes, 21, 21, root_level=1,
+                                            stop_level=1, device="cpu")
+    for name, g, w in zip(tb.GroupedExchange._fields, out2, want2):
+        assert torch.equal(g.cpu(), w), name
+
+
+def _streaming_batch(seed):
+    """Two level-1 buckets past the node threshold, each a dense blob that
+    splits to the depth cap beside four lone points (1-point leaves, so
+    extras), a sparse octant that needs no subtree, and an anchor."""
+    rng = np.random.default_rng(seed)
+    lone = np.array([[15.0, 2, 2], [2, 15, 2], [2, 2, 15], [12, 12, 3]])
+    parts = []
+    for corner in (np.zeros(3), np.array([20.0, 0, 0])):
+        parts += [corner + 3.0 + rng.random((100_003, 3)) * 1e-3,
+                  corner + lone]
+    parts += [rng.random((5_000, 3)) * 20.0 + [0.0, 20.0, 0.0],
+              np.array([[40.0, 40.0, 40.0]])]
+    position = np.concatenate(parts)
+    return PointsBatch(position=position, attributes={
+        "color": rng.integers(0, 256, (len(position), 3), dtype=np.uint8)})
+
+
+@pytest.mark.parametrize("extras_cap", [None, 1])
+def test_streaming_build_on_card_matches_cpu(cuda, tmp_path, monkeypatch,
+                                             extras_cap):
+    from point_cloud_viewer_tpu_torch.octree.streaming import (
+        build_octree_streaming,
+    )
+
+    if extras_cap is not None:
+        orig = tb.tree_codes_grouped_on_device
+
+        def capped(*args, **kwargs):
+            kwargs["extras_cap"] = extras_cap
+            return orig(*args, **kwargs)
+
+        monkeypatch.setattr(tb, "tree_codes_grouped_on_device", capped)
+    batch = _streaming_batch(seed=3)
+    before = [w.launches for w in _WRAPPERS]
+    phases = {}
+    card, cpu = tmp_path / "card", tmp_path / "cpu"
+    build_octree_streaming(str(card), 0.001, batch, bucket_levels=1,
+                           device=cuda, phase_times=phases)
+    after = [w.launches for w in _WRAPPERS]
+    build_octree_streaming(str(cpu), 0.001, batch, bucket_levels=1,
+                           device="cpu")
+    assert all(a > b for a, b in zip(after, before))
+    up, down = phases["bucket_upload_bytes"], phases["bucket_fetch_bytes"]
+    # 8 B/pt up; down ~4 B/pt, or 6 B/pt on the classic route (overflow).
+    assert (down > 0.75 * up) == (extras_cap == 1)
+    names = sorted(p.name for p in cpu.iterdir())
+    assert names == sorted(p.name for p in card.iterdir())
+    for name in names:
+        assert (card / name).read_bytes() == (cpu / name).read_bytes(), name

@@ -24,6 +24,8 @@ _PORT_MODULES = [
     "point_cloud_viewer_tpu_torch.ops.culling",
     "point_cloud_viewer_tpu_torch.viewer.render_loop",
     "point_cloud_viewer_tpu_torch.cli.view",
+    "point_cloud_viewer_tpu_torch.octree.streaming",
+    "point_cloud_viewer_tpu_torch.ops.leaf_levels_cuda",
 ]
 
 
@@ -74,12 +76,16 @@ def test_cpu_calls_leave_every_launch_counter_at_zero():
         build_tree_device_codes_grouped,
     )
 
+    from point_cloud_viewer_tpu_torch.ops import leaf_levels_cuda as K6
+
     wrappers = (SC.scan_1d, LC.seg_start_pass, LC.leaf_update_pass,
-                LC.promote_pass)
+                LC.promote_pass, K6.leaf_levels)
     before = [w.launches for w in wrappers]
     codes = np.random.default_rng(0).integers(0, 2**63, 3_000,
                                               dtype=np.uint64)
     out = build_tree_device_codes_grouped(
         torch.from_numpy(codes.view(np.int64)), len(codes), 21, 21, 50)
     assert out.order2.device.type == "cpu"
+    K6.leaf_levels(torch.sort(torch.from_numpy(codes.view(np.int64))).values,
+                   21, 21, 50)
     assert [w.launches for w in wrappers] == before

@@ -186,3 +186,80 @@ def test_core_rejects_bad_arguments():
     with pytest.raises(ValueError):
         morton.codes_to_tensor(np.array([2**63], dtype=np.uint64), "cpu")
 
+
+
+def _skip_empty_assign_and_promote(sorted_codes, depth, max_points, root,
+                                   stop, n_real):
+    """The formulation the sync-free derivation replaced: promotion skips
+    the levels where no point rests (a host read per level)."""
+    from point_cloud_viewer_tpu_torch.ops import level_cuda as LC
+
+    b = tb._bound_levels(sorted_codes, depth, n_real)
+    n = b.shape[0]
+    leaf = torch.full((n,), depth, dtype=torch.uint8)
+    found = torch.zeros(n, dtype=torch.uint8)
+    for level in range(root + 1, depth + 1):
+        LC.leaf_update_pass(b, LC.seg_start_pass(b, level), leaf, found,
+                            level, max_points)
+    cur = leaf.clone()
+    for level in range(depth, stop, -1):
+        if bool((cur == level).any()):
+            LC.promote_pass(b, cur, level)
+    return leaf, cur
+
+
+@pytest.mark.parametrize("root,stop,pad", [(0, 0, 0), (2, 2, 0), (0, 3, 37),
+                                           (1, 1, 5)])
+def test_sync_free_derivation_matches_skip_empty_formulation_and_jax(
+        root, stop, pad):
+    """Every level promoted (empty ones are no-ops) and the level counts
+    taken from the sorted key: bit-equal to the per-level-skip loop with
+    torch.bincount, and to the JAX package."""
+    codes = _hot_codes(12_000, seed=31 + root + pad, root_level=root)
+    n_real = len(codes)
+    codes = np.concatenate([codes, np.full(pad, 2**63 - 1, np.uint64)])
+    got = tb.build_tree_device_codes_grouped(
+        morton.codes_to_tensor(codes, "cpu"), n_real, _DEPTH, _DEPTH, 60,
+        root, stop, 512)
+    sorted_codes = torch.cat([
+        torch.sort(morton.codes_to_tensor(codes[:n_real], "cpu")).values,
+        morton.codes_to_tensor(codes[n_real:], "cpu")])
+    leaf, cur = _skip_empty_assign_and_promote(sorted_codes, _DEPTH, 60,
+                                               root, stop, n_real)
+    assert torch.equal(got.leaf, leaf) and torch.equal(got.final, cur)
+    key = cur.clone()
+    key[n_real:] = _DEPTH + 1
+    assert torch.equal(got.level_counts,
+                       torch.bincount(key, minlength=_DEPTH + 2).int())
+    if pad == 0:
+        _assert_grouped_equal(got, _jax_grouped(codes, n_real, 60, root,
+                                                stop, 512))
+
+
+def test_async_dispatch_and_fetch_match_jax(monkeypatch):
+    """tree_codes_grouped_on_device + fetch_grouped (the streaming
+    bucket's round trip) against the JAX padded call, both exchanges."""
+    codes = _hot_codes(15_000, seed=44, root_level=1)
+    for cap in (None, 2):
+        out = tb.tree_codes_grouped_on_device(
+            codes, _DEPTH, _DEPTH, root_level=1, stop_level=1, device="cpu",
+            extras_cap=cap, max_points_per_node=80)
+        hi, lo = jax_morton.split_u64(codes)
+        want, n = jax_tb.tree_codes_grouped_on_device_padded(
+            hi, lo, _DEPTH, _DEPTH, 80, 1, 1,
+            extras_cap=max(512, len(codes) >> 6) if cap is None else cap)
+        got = tb.fetch_grouped(out)
+        want = [np.asarray(w) for w in want]
+        total = int(want[4])
+        assert got.overflow == (total > len(want[2])) == (cap == 2)
+        if got.overflow:
+            np.testing.assert_array_equal(got.idx, want[5][:n])
+            np.testing.assert_array_equal(got.final, want[6][:n])
+            np.testing.assert_array_equal(got.leaf, want[7][:n])
+            assert got.nbytes == 4 + 6 * n
+        else:
+            np.testing.assert_array_equal(got.order2, want[0][:n])
+            np.testing.assert_array_equal(got.level_counts[:-1],
+                                          want[1][:-1])
+            np.testing.assert_array_equal(got.extras_idx, want[2][:total])
+            np.testing.assert_array_equal(got.extras_level, want[3][:total])
