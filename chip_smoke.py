@@ -5,8 +5,13 @@ one NVIDIA GPU.  Run from the repository root:
     python3 chip_smoke.py
 
 Phases (any failure raises and the exit code is non-zero):
-  1. device  -- require CUDA; print the card's name and power limit;
-  2. build   -- compile the port's CUDA kernels (csrc/*.cu) with nvcc;
+  1. device  -- require CUDA; print the card's name and power limit; a
+                meta-path finder refuses every import of jax and of the JAX
+                package (point_cloud_viewer_tpu), so the run proves the port
+                stands alone;
+  2. build   -- compile the port's CUDA kernels (csrc/*.cu) with nvcc and,
+                beside them, its host library (native/pcv_native.cpp) with
+                g++, so no later wall time holds a build;
   3. kernels -- K1-K4 against their plain PyTorch versions on the card, at
                 16M and 64M elements (ragged n), bit for bit; CUDA-event
                 median times of kernel and plain version;
@@ -15,8 +20,9 @@ Phases (any failure raises and the exit code is non-zero):
                 call on CPU tensors (the kernels' plain versions), every
                 output bit for bit;
   5. e2e     -- a 16M-point PLY through the port's CLI
-                (cli.build_octree --use_device) on the card, byte-compared
-                with the same CLI run with --device cpu; per-phase times and
+                (cli.build_octree, whose defaults derive the tree on the
+                card) byte-compared with the same CLI run with --device
+                cpu; per-phase times and
                 the main path's kernel launch counts;
   6. cull    -- the viewer's device cull: a. K5 against its plain version
                 on a 1,048,576-node table (partial view, all visible, > 32
@@ -24,7 +30,8 @@ Phases (any failure raises and the exit code is non-zero):
                 medians; b. DeviceCullSession.step / step_frames on the card
                 against device="cpu" over that table and phase 5's octree,
                 60 orbit frames, bit for bit; c. the port's viewer CLI
-                (cli.view --device_cull --frames 60) on phase 5's octree:
+                (cli.view --frames 60, which culls on the card by default)
+                on phase 5's octree:
                 K5 launches, visible nodes, a decodable final PNG;
   7. leaf + streaming -- a. K6 at 16M and 64M sorted synthetic codes against
                 its plain version and the device core's leaf output, bit for
@@ -35,12 +42,23 @@ Phases (any failure raises and the exit code is non-zero):
                 a 64M-point PLY built in core and streamed on the card and
                 byte-compared; per-bucket phase times, bytes up and down, the
                 bucket count, the streaming path's K1-K4 launches and the
-                share of the card's bucket time the host waited for.
+                share of the card's bucket time the host waited for;
+  8. probe + bounds -- K7 (copy, triad, add3) against its plain version
+                at 128,000,000 and ragged n, bit for bit; the streaming-
+                bandwidth probes (hbm_probes: add_1d, add_2d, copy, triad,
+                add3) and torch.add's time; then, for K1-K7, the least bytes
+                a launch moves, its launches per main-path call (16M
+                in-core build, streamed bucket, viewer frame), its bound
+                (bytes over the card's memory rate -- the larger of its
+                published peak and the measured probe rate -- or K5's f32
+                operations over the card's published f32 peak where
+                larger), the bytes over the probe rate alone, and kernel,
+                plain and library times beside them.
 
 The CPU route itself is held to the JAX package by tests/test_torch_*.py.
 The line before the last is a JSON object {"kernels": [...]}; the last is
-{"ok": true, "device": {...}}.  Imports nothing of JAX and names no module
-of the JAX package.
+{"ok": true, "device": {...}}.  Imports nothing of JAX and nothing of the
+JAX package.
 """
 
 from __future__ import annotations
@@ -52,9 +70,9 @@ import os
 import re
 import shutil
 import statistics
-import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -69,11 +87,33 @@ CULL_BATCH = 64                      # phase 6a: bench.py's batched orbit
 VIEW_FRAMES = 60                     # phase 6b/c: cli.view's default orbit
 DEPTH = 21                           # the 63-bit code budget
 REPS = 5                             # timed repetitions (median reported)
+PROBE_N = 128_000_000                # phase 8: bench.py:145's probe size
+PROBE_RAGGED = (1, 3, 5, 4097, 1_000_003)
+PROBE_ITERS = 20                     # bench.py:144
+# f32 rate outside the tensor cores, NVIDIA H100 SXM data sheet (an FMA
+# counts two operations), at the 700 W power limit.
+FP32_PEAK_OPS = 67e12
 DEVICE = "cuda"
 
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+class RefuseJaxPackage:
+    """Meta-path finder that refuses jax and the JAX package
+    (point_cloud_viewer_tpu and its submodules)."""
+
+    @staticmethod
+    def refused(name: str) -> bool:
+        return (name.split(".")[0] in ("jax", "jaxlib")
+                or name == "point_cloud_viewer_tpu"
+                or name.startswith("point_cloud_viewer_tpu."))
+
+    def find_spec(self, name, path=None, target=None):
+        if self.refused(name):
+            raise ImportError(f"chip_smoke refuses to import {name}")
+        return None
 
 
 def cuda_ms(fn, setup=None, reps=REPS) -> float:
@@ -155,8 +195,11 @@ def phase_kernels(record: dict) -> None:
                     raise AssertionError(f"K1 {kind} rev={rev} {tag}: {err}")
         ms = cuda_ms(lambda: SC.scan_1d(small, "sum"))
         pms = cuda_ms(lambda: SC.scan_1d_plain(small, "sum"))
-        log(f"K1 scan_1d sum {tag}: kernel {ms:.4f} ms, plain {pms:.4f} ms")
+        lms = cuda_ms(lambda: torch.cumsum(small, 0, dtype=torch.int32))
+        log(f"K1 scan_1d sum {tag}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+            f"torch.cumsum {lms:.4f} ms")
         record["K1"]["times"][n] = (ms, pms)
+        record["K1"]["lib"][n] = lms
         del wide, small
 
         # K2-K4 over the boundary array of sorted codes with dense cells,
@@ -356,8 +399,7 @@ def phase_e2e(wrappers: dict, tmp: str) -> tuple:
         w.launches = 0
     phases = {}
     t0 = time.perf_counter()
-    out = run_cli([ply, "--output_directory", a_dir, "--use_device"],
-                  phases)
+    out = run_cli([ply, "--output_directory", a_dir], phases)
     wall = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
     log(f"e2e: port CLI build on the card {wall:.3f} s; phases (s) "
@@ -521,7 +563,37 @@ def phase_cull_kernel(record: dict) -> tuple:
         log(f"K5 {name} at K={CULL_NODES}: kernel {times[name][0]:.4f} ms, "
             f"plain {times[name][1]:.4f} ms")
     record["K5"]["times"] = times
+    record["K5"]["bytes"], record["K5"]["ops"] = cull_work(
+        *cases["partial"])
     return mins, edges, num_points
+
+
+def cull_work(per_frame, nodes) -> tuple:
+    """(bytes, f32 operations) that one single-frame K5 launch needs on
+    these inputs: every input read once and every output (size, visible,
+    priority) written once; per node 271 operations for the corners and
+    the screen size, plus 56 for each SAT axis tested up to the first that
+    separates (csrc/cull.cu stops there)."""
+    import torch
+
+    matrix, axes, qmin, qmax = per_frame
+    mins, edges, _ = nodes
+    k, a_cap = edges.shape[0], axes.shape[0]
+    nbytes = (sum(t.numel() * t.element_size() for t in (*per_frame, *nodes))
+              + k * (4 + 1 + 4))
+    unit = torch.tensor([[c & 1, (c >> 1) & 1, (c >> 2) & 1]
+                         for c in range(8)], dtype=torch.float32,
+                        device=mins.device)
+    corners = mins[:, None, :] + unit[None] * edges[:, None, None]
+    tested = torch.full((k,), a_cap, dtype=torch.int64, device=mins.device)
+    alive = torch.ones(k, dtype=torch.bool, device=mins.device)
+    for j in range(a_cap):
+        u = axes[j]
+        p = corners[..., 0] * u[0] + corners[..., 1] * u[1] + corners[..., 2] * u[2]
+        separated = (p.amin(1) > qmax[j]) | (p.amax(1) < qmin[j])
+        tested[alive & separated] = j + 1
+        alive &= ~separated
+    return nbytes, 271 * k + 56 * int(tested.sum())
 
 
 def orbit_matrices(center, diag, frames, width, height) -> list:
@@ -689,7 +761,7 @@ def decode_png(path: str) -> np.ndarray:
 
 
 def phase_view(octree_dir: str, tmp: str) -> int:
-    """6c: the port's viewer CLI with --device_cull on the card over phase
+    """6c: the port's viewer CLI, culling on the card by default, over phase
     5's octree; returns K5's launches in that run."""
     from point_cloud_viewer_tpu_torch.cli.view import main as view_main
     from point_cloud_viewer_tpu_torch.ops import cull_cuda as CC
@@ -699,12 +771,12 @@ def phase_view(octree_dir: str, tmp: str) -> int:
     CC.cull_lod.launches = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        rc = view_main([octree_dir, "--device_cull", "--device", DEVICE,
-                        "--frames", str(VIEW_FRAMES), "--screenshot", shot])
+        rc = view_main([octree_dir, "--device", DEVICE, "--frames",
+                        str(VIEW_FRAMES), "--screenshot", shot])
     wall = time.perf_counter() - t0
     launches = CC.cull_lod.launches
     out = buf.getvalue().strip()
-    log(f"view: cli.view --device_cull --frames {VIEW_FRAMES} on the card: "
+    log(f"view: cli.view --frames {VIEW_FRAMES} on the card: "
         f"rc {rc}, {wall:.3f} s, K5 launches {launches}; cli said: {out}")
     said = re.search(r"Final frame: (\d+)/(\d+) nodes, (\d+) points", out)
     if rc != 0 or not said or int(said.group(2)) <= 0:
@@ -837,10 +909,11 @@ def phase_streaming(wrappers: dict, tmp: str, ply16: str, incore16: str,
     """7b: phase 5's PLY streamed on the card against phase 5's in-core
     output, then BIG_POINTS built in core and streamed, byte for byte;
     every intermediate is deleted once compared.  Returns the 16M
-    streaming path's launch counts."""
+    streaming path's launch counts and its number of buckets derived on
+    the card."""
     spill = os.path.join(tmp, "spill")
     out = os.path.join(tmp, "streamed16")
-    wall, _, launches16 = streaming_cli(ply16, out, spill, wrappers)
+    wall, phases16, launches16 = streaming_cli(ply16, out, spill, wrappers)
     files = dirs_byte_equal(incore16, out)
     log(f"streaming 16M: == phase 5's in-core card build, {files} files "
         f"byte-equal; wall streamed {wall:.3f} s vs in core "
@@ -869,33 +942,146 @@ def phase_streaming(wrappers: dict, tmp: str, ply16: str, incore16: str,
         f"wall streamed {wall:.3f} s vs in core {incore_wall:.3f} s")
     shutil.rmtree(incore)
     shutil.rmtree(out)
-    return launches16
+    return launches16, int(phases16["buckets_derived"])
+
+
+# --- phase 8: K7, the probes, and every kernel's bound -------------------
+
+
+def phase_probe(record: dict) -> tuple:
+    """8a: K7 (every mode) against its plain version at PROBE_RAGGED and
+    PROBE_N, bit for bit, and CUDA-event medians of the copy, its plain
+    version and torch.add at the Pallas probe's whole-block length; 8b:
+    hbm_probes on the card, K7's launch count set to 0 just before and
+    read just after.  Returns (K7 launches in 8b, the probe results)."""
+    import torch
+
+    from point_cloud_viewer_tpu_torch.ops import hbm_probe as K7
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(dev).manual_seed(8)
+    for n in (*PROBE_RAGGED, PROBE_N):
+        x, y, z = (torch.rand(n, generator=gen, device=dev) * 2 - 1
+                   for _ in range(3))
+        s = torch.rand(1, generator=gen, device=dev) - 0.5
+        for mode, extra in (("copy", ()), ("triad", (y,)), ("add3", (y, z))):
+            got = K7.stream_probe(mode, x, s, *extra)
+            want = K7.stream_probe_plain(mode, x, s, *extra)
+            err = f32_err(got, want)
+            record["K7"]["err"] = max(record["K7"]["err"], err)
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"K7 {mode} n={n}: max_abs_err {err}")
+        log(f"K7 stream_probe n={n}: copy, triad, add3 bit-equal to plain")
+
+    n_eff = PROBE_N // (128 * 2048) * (128 * 2048)
+    xe = x[:n_eff]
+    ms = cuda_ms(lambda: K7.stream_probe("copy", xe, s))
+    pms = cuda_ms(lambda: K7.stream_probe_plain("copy", xe, s))
+    lms = cuda_ms(lambda: torch.add(xe, s))
+    alpha = float(s)
+    tri = (cuda_ms(lambda: K7.stream_probe("triad", x, s, y)),
+           cuda_ms(lambda: torch.add(x, y, alpha=alpha)))
+    log(f"K7 copy at n_eff={n_eff}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+        f"torch.add {lms:.4f} ms; triad at n={PROBE_N}: kernel "
+        f"{tri[0]:.4f} ms, torch.add(x, y, alpha=s) {tri[1]:.4f} ms")
+    record["K7"]["times"][PROBE_N] = (ms, pms)
+    record["K7"]["lib"][PROBE_N] = lms
+    record["K7"]["bytes"] = 2 * 4 * n_eff
+    del x, y, z, s, got, want, xe
+    torch.cuda.empty_cache()
+
+    K7.stream_probe.launches = 0
+    probes = K7.hbm_probes(dev, n=PROBE_N, iters=PROBE_ITERS,
+                           generator=torch.Generator(dev).manual_seed(9))
+    launches = K7.stream_probe.launches
+    for shape in ("add_1d", "add_2d", "copy", "triad", "add3"):
+        log(f"probe {shape}: {probes[f'hbm_probe_{shape}_gbps']:.3f} GB/s, "
+            f"{probes[f'hbm_probe_{shape}_ms']:.4f} ms a pass")
+    share = probes["hbm_probe_share_of_published_peak"]
+    log(f"probe: hbm_probe_gbps {probes['hbm_probe_gbps']:.3f} GB/s on "
+        f"{probes['card']}; share of the card's published peak "
+        f"({probes['published_peak_gbps']} GB/s): "
+        f"{'n/a' if share is None else f'{share:.4f}'}; K7 launches {launches}")
+    if launches <= 0:
+        raise AssertionError("probe: K7 was not launched")
+    return launches, probes
+
+
+def bounds(record: dict, probes: dict, per_call: dict) -> dict:
+    """Per kernel: the least time the card could take for one launch's
+    work -- its bytes over the card's memory rate, or its f32 operations
+    over FP32_PEAK_OPS where larger -- beside its kernel, plain and library
+    times; printed as a table, returned by kernel.  The memory rate is the
+    larger of the card's published peak and the probe's measured
+    hbm_probe_gbps, so a slow probe cannot loosen a bound; `bound_probe_ms`
+    is the bytes over the measured rate alone."""
+    probe = probes["hbm_probe_gbps"]
+    rate = max(probe, probes["published_peak_gbps"] or 0.0)
+    log(f"bound: memory rate {rate:.3f} GB/s (published peak "
+        f"{probes['published_peak_gbps']} GB/s, probe {probe:.3f} GB/s); "
+        f"f32 peak {FP32_PEAK_OPS:.4g} operations/s")
+    out = {}
+    for k, rec in record.items():
+        ms, pms = rec["main"]
+        t_bytes = rec["bytes"] / (rate * 1e9) * 1e3
+        t_ops = rec.get("ops", 0) / FP32_PEAK_OPS * 1e3
+        bound = max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        lib = rec["lib_ms"]
+        out[k] = {"bytes": rec["bytes"], "bound_ms": bound, "bound_by": by,
+                  "bound_probe_ms": rec["bytes"] / (probe * 1e9) * 1e3}
+        calls = ", ".join(f"{where} {n:.3f}" for where, n in per_call[k].items())
+        log(f"bound {k}: {rec['bytes']} B"
+            + (f", {rec['ops']} f32 ops" if "ops" in rec else "")
+            + f"; launches per call: {calls}; bound {bound:.4f} ms ({by}); "
+            f"kernel {ms:.4f} ms = {ms / bound:.2f}x bound; bytes over the "
+            f"probe rate {out[k]['bound_probe_ms']:.4f} ms; plain "
+            f"{pms:.4f} ms; library "
+            + ("none (no single call)" if lib is None else f"{lib:.4f} ms"))
+    return out
 
 
 def main() -> int:
+    finder = RefuseJaxPackage()
+    sys.meta_path.insert(0, finder)
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
+    from point_cloud_viewer_tpu_torch import native
     from point_cloud_viewer_tpu_torch.ops import _ext
     from point_cloud_viewer_tpu_torch.ops import cull_cuda as CC
+    from point_cloud_viewer_tpu_torch.ops import hbm_probe as K7
     from point_cloud_viewer_tpu_torch.ops import leaf_levels_cuda as K6
     from point_cloud_viewer_tpu_torch.ops import level_cuda as LC
     from point_cloud_viewer_tpu_torch.ops import scan_cuda as SC
 
     t_start = time.perf_counter()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = K7.card_label(torch.device(DEVICE))
     log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
-        f"torch {torch.__version__} cuda {torch.version.cuda}")
+        f"torch {torch.__version__} cuda {torch.version.cuda}; imports of "
+        "jax and point_cloud_viewer_tpu refused")
 
+    host = {}
+
+    def build_host():
+        try:
+            host["seconds"] = native.build()
+        except Exception as e:  # noqa: BLE001 - re-raised below
+            host["error"] = e
+
+    thread = threading.Thread(target=build_host)
+    thread.start()
     info = _ext.build(force=True)
-    log(f"build: nvcc {info.seconds:.3f} s -> {_ext.LIB_PATH}")
+    thread.join()
+    if "error" in host:
+        raise host["error"]
+    if not native.available():
+        raise AssertionError("the port's host library does not load")
+    log(f"build: nvcc {info.seconds:.3f} s -> {_ext.LIB_PATH}; g++ "
+        f"{host['seconds']:.3f} s (beside nvcc) -> {native._SO}")
     for line in info.log.splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             log("  " + line.strip())
@@ -918,8 +1104,12 @@ def main() -> int:
         "K6": ("leaf_levels", K6.leaf_levels,
                "point_cloud_viewer_tpu_torch/csrc/leaf_levels.cu",
                "point_cloud_viewer_tpu/ops/tree_build_pallas.py:150"),
+        "K7": ("stream_probe", K7.stream_probe,
+               "point_cloud_viewer_tpu_torch/csrc/stream_probe.cu",
+               "bench.py:199"),
     }
-    record = {k: {"err": 0, "times": {}, "loop": {}} for k in kernels}
+    record = {k: {"err": 0, "times": {}, "loop": {}, "lib": {}}
+              for k in kernels}
     phase_kernels(record)
     phase_core()
     build = {k: v[1] for k, v in kernels.items() if k in ("K1", "K2", "K3",
@@ -927,27 +1117,55 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="pcv_chip_smoke_")
     try:
         launches, octree_dir, ply, incore_wall = phase_e2e(build, tmp)
+        incore = dict(launches)
         table = phase_cull_kernel(record)
         phase_cull_session(octree_dir, table)
         launches["K5"] = phase_view(octree_dir, tmp)
         launches["K6"] = phase_leaf_levels(record)
-        streamed = phase_streaming(build, tmp, ply, octree_dir, incore_wall)
-        log(f"launches on the in-core path (phase 5) {json.dumps(launches)}; "
-            f"on the streaming path (phase 7b, 16M) {json.dumps(streamed)}")
+        streamed, buckets = phase_streaming(build, tmp, ply, octree_dir,
+                                            incore_wall)
+        log(f"launches on the in-core path (phase 5) {json.dumps(incore)}; "
+            f"on the streaming path (phase 7b, 16M, {buckets} buckets) "
+            f"{json.dumps(streamed)}; K5 in the viewer (phase 6c, "
+            f"{VIEW_FRAMES} frames) {launches['K5']}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    launches["K7"], probes = phase_probe(record)
 
-    def times(k):
-        if k == "K5":  # one frame, partial view, CULL_NODES nodes
-            return record[k]["times"]["partial"]
-        return record[k]["times"][SIZES[0]]
+    # Bytes a launch moves at the timed shape (n = SIZES[0] for K1-K4 and
+    # K6): K1 i32 in + out; K2 u8 b in, i32 seg_start out; K3 b, seg_start,
+    # leaf and found in, leaf and found out; K4 b and cur in, cur out; K6
+    # i64 codes in, i32 leaf out.  K5 and K7 were counted in their phases.
+    per_elem = {"K1": 8, "K2": 5, "K3": 9, "K4": 3, "K6": 12}
+    for k, rec in record.items():
+        if k in per_elem:
+            rec["bytes"] = per_elem[k] * SIZES[0]
+        rec["main"] = (rec["times"]["partial"] if k == "K5" else
+                       rec["times"][PROBE_N if k == "K7" else SIZES[0]])
+        rec["lib_ms"] = {"K1": rec["lib"].get(SIZES[0]),
+                         "K7": rec["lib"].get(PROBE_N)}.get(k)
+    per_call = {k: {"in-core 16M build": incore.get(k, 0),
+                    "streamed bucket": streamed.get(k, 0) / buckets,
+                    "viewer frame": (launches["K5"] / VIEW_FRAMES
+                                     if k == "K5" else 0)}
+                for k in kernels}
+    bound = bounds(record, probes, per_call)
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": record[k]["err"],
-         "ms": times(k)[0], "plain_ms": times(k)[1]}
+         "ms": record[k]["main"][0], "plain_ms": record[k]["main"][1],
+         "bound_ms": bound[k]["bound_ms"], "bound_by": bound[k]["bound_by"],
+         "library_ms": record[k]["lib_ms"], "lib_ms": record[k]["lib_ms"],
+         "bytes": record[k]["bytes"],
+         "bound_probe_ms": bound[k]["bound_probe_ms"],
+         "launches_per_call": per_call[k]}
         for k, (name, _, src, rep) in kernels.items()
     ]}
+    leaked = sorted(m for m in sys.modules if finder.refused(m))
+    if leaked:
+        raise AssertionError(f"modules of jax or the JAX package loaded: "
+                             f"{leaked}")
     log(f"total {time.perf_counter() - t_start:.3f} s; card: {smi}")
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {

@@ -2,13 +2,13 @@
 point_cloud_viewer_tpu for NVIDIA Hopper (H100).
 
 The JAX package stays beside it as the reference.  Its layout is mirrored
-here module by module; every Pallas kernel on a ported path becomes a
-hand-written CUDA kernel under `csrc/`, built with nvcc on first use
-(`ops/_ext.py`), with a plain PyTorch version beside it that CPU tensors
-take.  This package imports torch and never jax: host layers that are
-jax-free (core, io, protos, math.geometry, octree.node_id, ops.codec,
-native, utils.progress) are imported from point_cloud_viewer_tpu as they
-are.
+here module by module; every Pallas kernel becomes a hand-written CUDA
+kernel under `csrc/`, built with nvcc on first use (`ops/_ext.py`), with a
+plain PyTorch version beside it that CPU tensors take.  This package
+imports torch and nothing of the JAX package: the host layers it needs
+(core, io, protos, math, octree.node_id, octree.octree, ops.codec, native,
+utils.progress, viewer.camera, viewer.software_raster) are its own copies,
+each citing the source lines it was copied from.
 """
 
 __version__ = "0.1.0"

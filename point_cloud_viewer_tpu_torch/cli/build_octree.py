@@ -3,12 +3,12 @@ PyTorch device (port of point_cloud_viewer_tpu/cli/build_octree.py;
 reference: src/bin/build_octree.rs).
 
 Usage: python -m point_cloud_viewer_tpu_torch.cli.build_octree INPUT.ply \
-           --output_directory DIR --use_device [--device cuda] \
-           [--resolution 0.001] [--streaming [--bucket_levels 2] \
-           [--spill_directory SPILL]]
+           --output_directory DIR [--device cuda] [--resolution 0.001] \
+           [--streaming [--bucket_levels 2] [--spill_directory SPILL]]
 
-The in-core and the out-of-core (--streaming) --use_device routes are
-ported; --mesh and the host build exit with "not yet ported".
+The tree derivation runs on --device (--use_device, the default): the
+in-core and the out-of-core (--streaming) routes are ported; --mesh and the
+host build (--no-use_device) exit with "not yet ported".
 """
 
 from __future__ import annotations
@@ -39,9 +39,10 @@ def main(argv=None, phase_times: Optional[dict] = None) -> int:
     )
     parser.add_argument(
         "--use_device",
-        action="store_true",
-        help="Run the tree derivation on --device (required: the host "
-        "build is not yet ported).",
+        action=argparse.BooleanOptionalAction,
+        default=True,
+        help="Run the tree derivation on --device (the default; the host "
+        "build, --no-use_device, is not yet ported).",
     )
     parser.add_argument(
         "--device",
@@ -80,8 +81,8 @@ def main(argv=None, phase_times: Optional[dict] = None) -> int:
     if args.mesh:
         parser.error("--mesh: not yet ported, see ROADMAP")
     if not args.use_device:
-        parser.error("the host build is not yet ported (see ROADMAP): "
-                     "pass --use_device")
+        parser.error("the host build (--no-use_device) is not yet ported "
+                     "(see ROADMAP)")
     if args.num_threads is not None:
         if args.num_threads <= 0:
             parser.error("--num_threads must be positive")
@@ -91,8 +92,7 @@ def main(argv=None, phase_times: Optional[dict] = None) -> int:
 
     times = {} if phase_times is None else phase_times
     if args.streaming:
-        from point_cloud_viewer_tpu.io.ply import PlyReader
-
+        from ..io.ply import PlyReader
         from ..octree.streaming import build_octree_streaming
 
         result = build_octree_streaming(

@@ -4,13 +4,13 @@ point_cloud_viewer_tpu/cli/view.py; reference:
 sdl_viewer/src/bin/sdl_viewer.rs).
 
 Usage: python -m point_cloud_viewer_tpu_torch.cli.view OCTREE_DIR \
-           [--device_cull] [--device cuda] [--frames 60] \
+           [--device cuda] [--no-device_cull] [--frames 60] \
            [--screenshot viewer_frame.png]
 
-With --device_cull the per-frame frustum cull + LOD selection runs on
---device (cuda, the default, or cpu for the kernel's plain version);
-without it the host culls, as in the JAX package.  --gl and --window are
-not yet ported.
+The per-frame frustum cull + LOD selection runs on --device (cuda, the
+default, or cpu for the kernel's plain version); --no-device_cull culls on
+the host with the native library instead.  --gl and --window are not yet
+ported.
 """
 
 from __future__ import annotations
@@ -35,14 +35,14 @@ def main(argv=None) -> int:
         "toggle, sdl_viewer 'o' key).",
     )
     parser.add_argument(
-        "--device_cull", action="store_true",
+        "--device_cull", action=argparse.BooleanOptionalAction, default=True,
         help="Per-frame frustum cull + LOD selection on --device (node "
-        "table resident on the device, one kernel launch per frame) "
-        "instead of the host-native kernels.",
+        "table resident on the device, one kernel launch per frame; the "
+        "default); --no-device_cull culls with the host-native kernels.",
     )
     parser.add_argument(
         "--device", default="cuda",
-        help="PyTorch device of --device_cull: cuda (default) or cpu.",
+        help="PyTorch device of the cull: cuda (default) or cpu.",
     )
     parser.add_argument("--window", action="store_true",
                         help="Interactive SDL2 window (not yet ported).")

@@ -1,0 +1,107 @@
+"""Separating-axis-theorem intersection engine, vectorized (copy of
+point_cloud_viewer_tpu/math/sat.py:22-141, trimmed to what the frustum
+cull uses).
+
+The reference tests one pair of convex polyhedra at a time with lazy axis
+iterators (reference: src/math/sat.rs:67-205).  Here the primitive is
+*one query polyhedron against a batch of N corner sets*: corners are
+(N, 8, 3) arrays, axis projection is one matmul, and the In / Cross / Out
+relation comes out as an (N,) integer array.
+
+Relations are encoded as integers: REL_IN=0, REL_CROSS=1, REL_OUT=2.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List
+
+import numpy as np
+
+REL_IN = 0
+REL_CROSS = 1
+REL_OUT = 2
+
+UNIT_AXES = np.eye(3)
+
+
+@dataclass
+class Intersector:
+    """Sufficient statistics of a convex polyhedron for SAT tests:
+    corners (8, 3), unit edge directions (E, 3), unit face normals (F, 3)."""
+
+    corners: np.ndarray
+    edges: np.ndarray
+    face_normals: np.ndarray
+
+    def separating_axes_with(
+        self, other_edges: np.ndarray, other_face_normals: np.ndarray
+    ) -> np.ndarray:
+        """All candidate separating axes against an object with the given
+        edges/normals: our normals, their normals, and normalized cross
+        products of every edge pair (non-finite results dropped)."""
+        crosses = np.cross(self.edges[:, None, :], other_edges[None, :, :]).reshape(-1, 3)
+        norms = np.linalg.norm(crosses, axis=1)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            crosses = crosses / norms[:, None]
+        crosses = crosses[np.isfinite(crosses).all(axis=1)]
+        return np.concatenate([self.face_normals, other_face_normals, crosses])
+
+    def cached_axes_for_aabb(self) -> "CachedAxes":
+        """Axes for testing against any AABB (whose edges/normals are the
+        unit axes) — reference: src/math/sat.rs:141-148."""
+        axes = dedup_axes(self.separating_axes_with(UNIT_AXES, UNIT_AXES))
+        return CachedAxes(axes=axes, corners=self.corners)
+
+
+@dataclass
+class CachedAxes:
+    """Precomputed separating axes + query corners, for one-vs-many tests."""
+
+    axes: np.ndarray  # (A, 3)
+    corners: np.ndarray  # (8, 3)
+
+    def intersect(self, corners: np.ndarray) -> np.ndarray:
+        """corners: (N, 8, 3) or (8, 3) → relation array (N,) or scalar."""
+        single = corners.ndim == 2
+        rel = sat_relation(self.axes, self.corners, corners[None, ...] if single else corners)
+        return int(rel[0]) if single else rel
+
+
+def dedup_axes(axes: np.ndarray, eps: float = 2.220446049250313e-16) -> np.ndarray:
+    """Drop axes that duplicate an earlier one up to sign
+    (reference dedup criterion: src/math/sat.rs:119-130)."""
+    kept: List[np.ndarray] = []
+    for ax in axes:
+        dupe = False
+        for k in kept:
+            d1 = np.sum((ax - k) ** 2)
+            d2 = np.sum((ax + k) ** 2)
+            if min(d1, d2) < eps:
+                dupe = True
+                break
+        if not dupe:
+            kept.append(ax)
+    return np.stack(kept) if kept else np.empty((0, 3))
+
+
+def sat_relation(
+    axes: np.ndarray, corners_a: np.ndarray, corners_b: np.ndarray
+) -> np.ndarray:
+    """Batched SAT: how is each corner set in `corners_b` (N, 8, 3) related
+    to the polyhedron with `corners_a` (8, 3)?  Returns (N,) ints.
+
+    REL_IN means B is completely inside A (reference: src/math/sat.rs:174-205)."""
+    proj_a = corners_a @ axes.T  # (8, A)
+    a_min = proj_a.min(axis=0)  # (A,)
+    a_max = proj_a.max(axis=0)
+    proj_b = corners_b @ axes.T  # (N, 8, A)
+    b_min = proj_b.min(axis=1)  # (N, A)
+    b_max = proj_b.max(axis=1)
+    out = np.any((b_min > a_max) | (b_max < a_min), axis=1)
+    cross = np.any((a_min > b_min) | (b_max > a_max), axis=1)
+    return np.where(out, REL_OUT, np.where(cross, REL_CROSS, REL_IN)).astype(np.int8)
+
+
+def normalize(v: np.ndarray) -> np.ndarray:
+    return v / np.linalg.norm(v, axis=-1, keepdims=True)

@@ -12,11 +12,10 @@ Port of the `use_device` path of point_cloud_viewer_tpu/octree/builder.py
    reference's on-disk format (meta.pb v13 + per-node files).
 
 The host helpers of steps 1 and 4 are copied below from the JAX package's
-builder, which cannot be imported without jax (its ops/morton.py imports
-jax at load time).  Their behaviour is unchanged, so the bytes on disk are
-the JAX package's, byte for byte.  The jax-free layers (core, io, protos,
-math.geometry, octree.node_id, ops.codec, native, utils.progress) are
-imported from point_cloud_viewer_tpu as they are.
+builder, and the layers under them (core, io, protos, math, octree.node_id,
+ops.codec, native, utils.progress) are the port's own copies of the JAX
+package's modules.  Their behaviour is unchanged, so the bytes on disk are
+the JAX package's, byte for byte.
 
 The out-of-core build (octree/streaming.py) shares these helpers, plus the
 subtree grouping and bottom-up subsampling copied below for it.
@@ -34,27 +33,21 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-from point_cloud_viewer_tpu.core.constants import CURRENT_VERSION, META_FILENAME
-from point_cloud_viewer_tpu.core.points_batch import PointsBatch
-from point_cloud_viewer_tpu.io.node_io import (
-    attempt_increasing_rlimit_to_max,
-    write_node_files,
-)
-from point_cloud_viewer_tpu.math.geometry import Aabb, Cube
-from point_cloud_viewer_tpu.octree.node_id import (
-    MAX_FORMAT_LEVEL,
-    NodeId,
-    bounding_cubes,
-)
-from point_cloud_viewer_tpu.ops.codec import encode_positions, position_encoding_for
-from point_cloud_viewer_tpu.protos.meta import (
+from .. import native
+from ..core.constants import CURRENT_VERSION, META_FILENAME
+from ..core.points_batch import PointsBatch, as_points_batch
+from ..io.node_io import attempt_increasing_rlimit_to_max, write_node_files
+from ..math.geometry import Aabb, Cube
+from ..ops import morton
+from ..ops.codec import encode_positions, position_encoding_for
+from ..protos.meta import (
     BoundingBoxProto,
     MetaProto,
     OctreeMetaProto,
     OctreeNodeProto,
 )
-
-from ..ops import morton
+from ..utils.progress import timed_phase
+from .node_id import MAX_FORMAT_LEVEL, NodeId, bounding_cubes
 
 
 # --- copied from point_cloud_viewer_tpu/octree/builder.py:52-102 ----------
@@ -91,9 +84,10 @@ class BuildResult:
 def _materialize(
     data: Union[PointsBatch, Iterable[PointsBatch]]
 ) -> PointsBatch:
-    if isinstance(data, PointsBatch):
-        return data
-    return PointsBatch.concatenate(list(data))
+    batch = as_points_batch(data)
+    if batch is not None:
+        return batch
+    return PointsBatch.concatenate([as_points_batch(b) for b in data])
 
 
 def compute_depth_cap(
@@ -132,8 +126,6 @@ def build_octree(
     PyTorch versions); the only path ported so far (False raises).
     `phase_times`: accumulates wall seconds per phase.
     On-disk output is byte-identical to the JAX package's build."""
-    from point_cloud_viewer_tpu.utils.progress import timed_phase
-
     from ..device import resolve_device
     from ..ops.tree_build import fetch_grouped, tree_codes_grouped_on_device
 
@@ -378,8 +370,6 @@ def _level_groups(codes, final_levels, leaf_levels, depth_cap):
     order preserved) and produces per-level occupied node paths+counts and
     distinct leaf prefixes.  Native single-pass kernel when available; the
     numpy fallback gathers codes per level."""
-    from point_cloud_viewer_tpu import native
-
     num_levels = depth_cap + 1
     full = native.group_levels_full(
         codes, final_levels, leaf_levels, depth_cap, num_levels
@@ -610,8 +600,6 @@ def _write_levels(
 def _write_levels_pooled(
     pool, directory, batch, order, final_nodes, root_cube, resolution,
 ):
-    from point_cloud_viewer_tpu import native
-
     recorded: List[Tuple[NodeId, int]] = []
     order = np.asarray(order, dtype=np.int64)
     pending_futures: list = []
@@ -714,8 +702,7 @@ def build_octree_from_file(
     device="cuda",
 ) -> BuildResult:
     """PLY file -> octree directory (reference: generation.rs:272-287)."""
-    from point_cloud_viewer_tpu.io.ply import PlyReader
-    from point_cloud_viewer_tpu.utils.progress import timed_phase
+    from ..io.ply import PlyReader
 
     with timed_phase(phase_times, "read ply"):
         batch = PlyReader(filename).read_all()

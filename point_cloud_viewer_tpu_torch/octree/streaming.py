@@ -45,14 +45,14 @@ from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Un
 import numpy as np
 import torch
 
-from point_cloud_viewer_tpu.core.constants import META_FILENAME, MAX_POINTS_PER_NODE
-from point_cloud_viewer_tpu.core.points_batch import PointsBatch
-from point_cloud_viewer_tpu.io.node_io import attempt_increasing_rlimit_to_max
-from point_cloud_viewer_tpu.math.geometry import Aabb, Cube
-from point_cloud_viewer_tpu.octree.node_id import MAX_FORMAT_LEVEL, NodeId
-from point_cloud_viewer_tpu.utils.progress import timed_phase as _timed_phase
-
+from .. import native
+from ..core.constants import META_FILENAME, MAX_POINTS_PER_NODE
+from ..core.points_batch import PointsBatch, as_points_batch
+from ..io.node_io import attempt_increasing_rlimit_to_max
+from ..math.geometry import Aabb, Cube
 from ..ops import morton
+from ..utils.progress import timed_phase as _timed_phase
+from .node_id import MAX_FORMAT_LEVEL, NodeId
 from .builder import (
     BuildResult,
     _group_subtree_levels,
@@ -67,10 +67,12 @@ from .builder import (
 
 
 def _iter_batches(data) -> Iterator[PointsBatch]:
-    if isinstance(data, PointsBatch):
-        yield data
+    batch = as_points_batch(data)
+    if batch is not None:
+        yield batch
     else:
-        yield from data
+        for b in data:
+            yield as_points_batch(b)
 
 
 def _add(phase_times: Optional[dict], key: str, value: float) -> None:
@@ -100,8 +102,6 @@ class _BucketSpill:
                  v.shape[1] if v.ndim == 2 else 1)
                 for k, v in batch.attributes.items()
             ]
-        from point_cloud_viewer_tpu import native
-
         if len(bucket_ids) == 0:  # e.g. a reader's trailing empty chunk
             return
         # Bucket ids span only 8^B values: one bincount pass gives both the
@@ -213,7 +213,7 @@ def build_octree_streaming(
 
     if (
         bounding_box is None
-        and not isinstance(data, PointsBatch)
+        and as_points_batch(data) is None
         and iter(data) is data
     ):
         # A one-shot iterator would be exhausted by the bbox pass and the
@@ -224,7 +224,7 @@ def build_octree_streaming(
         )
 
     if bounding_box is None:
-        if isinstance(data, PointsBatch):
+        if as_points_batch(data) is not None:
             bounding_box = Aabb.bounding_points(data.position)
         else:
             for b in _iter_batches(data):

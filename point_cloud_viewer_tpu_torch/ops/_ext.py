@@ -61,6 +61,11 @@ _SIGNATURES = {
          c_void_p],
         c_int,
     ),
+    "pcv_stream_probe": (
+        [c_int, c_void_p, c_void_p, c_void_p, c_void_p, c_void_p, c_longlong,
+         c_void_p],
+        c_int,
+    ),
     "pcv_cull_max_axes": ([], c_int),
     "pcv_cull": (
         [c_void_p, c_void_p, c_void_p, c_void_p, c_int, c_int, c_void_p,

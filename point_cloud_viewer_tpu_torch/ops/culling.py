@@ -8,9 +8,8 @@ size and visibility; a stable `torch.sort` of -priority orders the nodes
 (largest on screen first, invisible ones last, ties in index order as
 `jnp.argsort`).  On CPU tensors the same calls run K5's plain version.
 
-Frustum, Isometry and Perspective are the JAX package's jax-free host
-geometry (point_cloud_viewer_tpu.math.geometry), re-exported here for the
-callers of the session.
+Frustum, Isometry and Perspective are the port's host geometry
+(math/geometry.py), re-exported here for the callers of the session.
 """
 
 from __future__ import annotations
@@ -20,13 +19,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from point_cloud_viewer_tpu.math.geometry import (  # noqa: F401 (re-exported)
-    Frustum,
-    Isometry,
-    Perspective,
-)
-
 from ..device import resolve_device
+from ..math.geometry import Frustum, Isometry, Perspective  # noqa: F401 (re-exported)
 from .cull_cuda import cull_lod
 
 # --- copied from point_cloud_viewer_tpu/ops/culling.py:23-26 --------------
@@ -93,7 +87,7 @@ def frustum_cull_lod_select_host(
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Host twin of frustum_cull_lod_select (same SAT + screen-size rules,
     native C++ kernel with a numpy fallback), on numpy arrays."""
-    from point_cloud_viewer_tpu import native
+    from .. import native
 
     out = native.cull_lod_select(
         matrix, axes, query_min_proj, query_max_proj,

@@ -2,11 +2,11 @@
 of codes to the device as int64.
 
 The numpy/native functions below are copied unchanged in behaviour from
-point_cloud_viewer_tpu/ops/morton.py:24-141, whose module imports jax at
-load time (morton.py:20-21) and so cannot be imported here.  Codes are
-interleaved x,y,z with x most significant (the child-index convention
-x<<2 | y<<1 | z of octree.node_id.child_index_from_cube); a node at level L
-is the set of points whose codes share a 3L-bit prefix.
+point_cloud_viewer_tpu/ops/morton.py:24-141 and call the port's own native
+library.  Codes are interleaved x,y,z with x most significant (the
+child-index convention x<<2 | y<<1 | z of the JAX package's
+octree.node_id.child_index_from_cube); a node at level L is the set of
+points whose codes share a 3L-bit prefix.
 
 Device form: a 63-bit code is one NON-NEGATIVE int64 (`codes_to_tensor`),
 in place of the JAX package's (hi, lo) uint32 pair.
@@ -18,6 +18,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from .. import native
 
 MAX_DEPTH = 21  # 3*21 = 63 bits in a u64 code
 
@@ -33,8 +35,6 @@ def quantize(positions: np.ndarray, cube_min, edge_length: float, depth: int) ->
     if edge_length <= 0:
         return np.zeros((len(positions), 3), dtype=np.uint32)
     if len(positions) >= 100_000:
-        from point_cloud_viewer_tpu import native
-
         out = native.quantize_morton(
             positions, np.asarray(cube_min, dtype=np.float64), float(edge_length),
             depth, want_cells=True,
@@ -63,8 +63,6 @@ def quantize_and_encode(
         cells = np.zeros((n, 3), dtype=np.uint32)
         return np.zeros(n, dtype=np.uint64), (cells if want_cells else None)
     if n >= 100_000:
-        from point_cloud_viewer_tpu import native
-
         out = native.quantize_morton(
             positions, np.asarray(cube_min, dtype=np.float64), float(edge_length),
             depth, want_cells=want_cells,
@@ -80,8 +78,6 @@ def argsort_codes(codes: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
     Native multi-pass radix sort when available, else np.argsort."""
     if len(codes) >= 100_000:
-        from point_cloud_viewer_tpu import native
-
         out = native.radix_argsort_u64(codes)
         if out is not None:
             return out
@@ -106,8 +102,6 @@ def morton_encode(cells: np.ndarray) -> np.ndarray:
     Uses the native C++ kernel when available (~50x numpy on large inputs);
     both paths are bit-identical."""
     if len(cells) >= 100_000:
-        from point_cloud_viewer_tpu import native
-
         out = native.morton_encode(cells)
         if out is not None:
             return out

@@ -31,8 +31,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from point_cloud_viewer_tpu.core.constants import MAX_POINTS_PER_NODE
-
+from ..core.constants import MAX_POINTS_PER_NODE
 from . import morton
 from .level_cuda import leaf_update_pass, promote_pass, seg_start_pass
 from .scan_cuda import scan_1d

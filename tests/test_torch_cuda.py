@@ -5,8 +5,8 @@ the cull's f32 outputs: bit for bit too (NaN matching NaN), since K5 and
 its plain version round every operation alike.
 
 Every test here is marked `cuda` and skips where torch sees no card.  This
-file imports neither jax nor tests/conftest.py, so it also runs on a GPU
-machine without jax:
+file imports neither jax, nor the JAX package, nor tests/conftest.py, so it
+also runs on a GPU machine without jax:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
@@ -15,9 +15,10 @@ import numpy as np
 import pytest
 import torch
 
-from point_cloud_viewer_tpu.core.points_batch import PointsBatch
+from point_cloud_viewer_tpu_torch.core.points_batch import PointsBatch
 from point_cloud_viewer_tpu_torch.octree.builder import build_octree
 from point_cloud_viewer_tpu_torch.ops import cull_cuda as CC
+from point_cloud_viewer_tpu_torch.ops import hbm_probe as K7
 from point_cloud_viewer_tpu_torch.ops import culling
 from point_cloud_viewer_tpu_torch.ops import level_cuda as LC
 from point_cloud_viewer_tpu_torch.ops import morton
@@ -335,3 +336,34 @@ def test_streaming_build_on_card_matches_cpu(cuda, tmp_path, monkeypatch,
     assert names == sorted(p.name for p in card.iterdir())
     for name in names:
         assert (card / name).read_bytes() == (cpu / name).read_bytes(), name
+
+
+# --- K7, the streaming-bandwidth probe ----------------------------------------
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 4097, 1_000_003])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_stream_probe_kernel_matches_plain(cuda, n, offset):
+    """Every mode bit for bit at ragged n; offset 1 makes the inputs
+    unaligned for float4, so the kernel takes its scalar loop."""
+    rng = np.random.default_rng(n + offset)
+    x, y, z = (torch.from_numpy(rng.standard_normal(n + offset)
+                                .astype(np.float32)).to(cuda)[offset:]
+               for _ in range(3))
+    s = torch.tensor([rng.standard_normal()], dtype=torch.float32,
+                     device=cuda)
+    before = K7.stream_probe.launches
+    for mode, extra in (("copy", ()), ("triad", (y,)), ("add3", (y, z))):
+        got = K7.stream_probe(mode, x, s, *extra)
+        want = K7.stream_probe_plain(mode, x, s, *extra)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), mode
+    assert K7.stream_probe.launches == before + 3
+
+
+def test_hbm_probes_on_card(cuda):
+    out = K7.hbm_probes(cuda, n=4_000_000, iters=3,
+                        generator=torch.Generator(cuda).manual_seed(0))
+    shapes = ("add_1d", "add_2d", "copy", "triad", "add3")
+    rates = [out[f"hbm_probe_{k}_gbps"] for k in shapes]
+    assert all(r > 0 for r in rates) and out["hbm_probe_gbps"] == max(rates)
+    assert torch.cuda.get_device_name(cuda).split()[-1] in out["card"]

@@ -1,0 +1,494 @@
+"""The port's own copies of the JAX package's host modules (core, protos,
+ops.codec, native, math, io, octree.node_id, octree.octree, viewer.camera)
+against the originals, on seeded numpy inputs: every copied native function
+bit-equal, meta.pb bytes and decoded fields equal, PLY batches equal, the
+octree's fields and visible sets equal on a tree built by both packages,
+and the camera's matrices equal.  One parametrised test per module."""
+
+import numpy as np
+import pytest
+
+from point_cloud_viewer_tpu import native as jax_native
+from point_cloud_viewer_tpu.octree.builder import build_octree as jax_build
+from point_cloud_viewer_tpu.core.points_batch import PointsBatch as JaxBatch
+from point_cloud_viewer_tpu_torch import native
+from point_cloud_viewer_tpu_torch.octree.builder import build_octree
+
+RNG_SEED = 20
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Small tensor ops: one intra-op thread, so the test workers do not
+    crowd each other's cores."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _same(a, b):
+    """Equal arrays, dtypes and bits (NaN matching NaN)."""
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    assert a.dtype == b.dtype and a.shape == b.shape
+    np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+def _cull_args(k, seed, dtype):
+    from point_cloud_viewer_tpu_torch.ops.culling import (
+        Frustum, Isometry, Perspective, frustum_axes_and_projections)
+
+    rng = np.random.default_rng(seed)
+    frustum = Frustum.new(
+        Isometry.from_axis_angle([0, 1, 0], 0.3, translation=[40., 40., 90.]),
+        Perspective.from_fov(1.2, 1.0, 0.5, 300.0))
+    axes, qmin, qmax = frustum_axes_and_projections(frustum)
+    mins = rng.random((k, 3)) * 80.0
+    edges = 80.0 / np.exp2(rng.integers(0, 7, k))
+    num_points = rng.integers(0, 50, k).astype(np.int32)
+    return [np.asarray(a, dtype=dtype) for a in
+            (frustum.clip_from_query, axes, qmin, qmax, mins, edges)] + [
+                num_points]
+
+
+def _heap_args(seed):
+    """A small complete tree (levels 0-3) in (level, path) order, as
+    Octree._build_heap_index lays it out."""
+    from point_cloud_viewer_tpu_torch.ops.culling import (
+        Frustum, Isometry, Perspective, frustum_axes_and_projections)
+
+    levels = np.concatenate([np.full(8 ** l, l) for l in range(4)])
+    paths = np.concatenate([np.arange(8 ** l) for l in range(4)])
+    edges = 64.0 / np.exp2(levels)
+    mins = np.zeros((len(levels), 3))
+    for d in range(1, 4):
+        digit = (paths >> (3 * np.maximum(levels - d, 0))) & 7
+        bits = np.stack([(digit >> 2) & 1, (digit >> 1) & 1, digit & 1], 1)
+        mins += np.where((levels >= d)[:, None], bits * 64.0 / 2 ** d, 0.0)
+    starts = np.concatenate([[0], np.cumsum([8 ** l for l in range(4)])])
+    child_start = np.zeros(len(levels), np.int32)
+    child_end = np.zeros(len(levels), np.int32)
+    for l in range(3):
+        a = np.arange(starts[l], starts[l + 1])
+        child_start[a] = starts[l + 1] + 8 * (a - starts[l])
+        child_end[a] = child_start[a] + 8
+    frustum = Frustum.new(
+        Isometry.from_axis_angle([1, 0, 0], 0.2, translation=[30., 20., 120.]),
+        Perspective.from_fov(1.0, 0.8, 1.0, 500.0))
+    axes, qmin, qmax = frustum_axes_and_projections(frustum)
+    num_points = np.random.default_rng(seed).integers(
+        0, 9, len(levels)).astype(np.int32)
+    return (frustum.clip_from_query, axes.astype(np.float64),
+            qmin.astype(np.float64), qmax.astype(np.float64), mins, edges,
+            num_points, child_start, child_end, 0)
+
+
+def _native_cases():
+    rng = np.random.default_rng(RNG_SEED)
+    n = 50_000
+    pos = rng.random((n, 3)) * 100.0 - 20.0
+    pos[:7] = [[np.nan, 0, 0], [np.inf, 1, 1], [-np.inf, 2, 2], [0, 0, 0],
+               [80, 80, 80], [79.99999, 1e-12, 3], [-20, -20, -20]]
+    cells = rng.integers(0, 2 ** 21, (n, 3)).astype(np.uint32)
+    codes = np.sort(rng.integers(0, 2 ** 63, n, dtype=np.uint64))
+    codes[100:5000] = codes[100]
+    final = rng.integers(0, 9, n).astype(np.uint8)
+    leaf = np.maximum(final, rng.integers(0, 9, n).astype(np.uint8))
+    k = 300
+    offsets = np.concatenate([[0], np.sort(rng.integers(0, n, k - 1)), [n]])
+    idx = rng.permutation(n).astype(np.int64)
+    node_min = rng.random((k, 3)) * 50.0
+    node_edge = rng.random(k) * 60.0
+    node_edge[:3] = 0.0
+    ids = rng.integers(0, 64, n)
+    u8 = rng.integers(0, 256, (n, 3), dtype=np.uint8)
+    u16 = rng.integers(0, 65536, (n, 3), dtype=np.uint16)
+    pt_min = rng.random((n, 3)) * 10.0
+    pt_edge = rng.random(n) * 5.0
+    meta = _octree_meta_bytes(seed=RNG_SEED)
+    cases = {
+        "quantize_morton": lambda m: m.quantize_morton(
+            pos, np.array([-20.0, -20.0, -20.0]), 100.0, 21, want_cells=True),
+        "morton_encode": lambda m: m.morton_encode(cells),
+        "radix_argsort_u64": lambda m: m.radix_argsort_u64(
+            rng_codes(RNG_SEED)),
+        "group_levels_full": lambda m: m.group_levels_full(
+            codes, final, leaf, 21, 10),
+        "counting_argsort": lambda m: m.counting_argsort(
+            ids, np.bincount(ids, minlength=64)),
+        "take_rows": lambda m: [m.take_rows(a, idx) for a in
+                                (u8, u16, pos, final, pos[:, :1].copy())],
+        "decode_positions": lambda m: [
+            m.decode_positions(e, pt_min, pt_edge) for e in (u8, u16)],
+        "cull_lod_select": lambda m: [
+            m.cull_lod_select(*_cull_args(4000, RNG_SEED, dt), dtype=dt,
+                              max_out=mo)
+            for dt in (np.float32, np.float64) for mo in (0, 100)],
+        "cull_lod_heap": lambda m: m.cull_lod_heap(
+            *_heap_args(RNG_SEED), 200),
+        "parse_octree_meta": lambda m: m.parse_octree_meta(meta),
+    }
+    for dt in (np.uint8, np.uint16, np.float32, np.float64):
+        cases[f"gather_encode_{np.dtype(dt).name}"] = (
+            lambda m, dt=dt: m.gather_encode(pos, idx, node_min, node_edge,
+                                             offsets, dt))
+    return cases
+
+
+def rng_codes(seed):
+    rng = np.random.default_rng(seed + 1)
+    codes = rng.integers(0, 2 ** 51, 200_000, dtype=np.uint64)
+    codes[::3] = codes[0]
+    return codes
+
+
+def _flatten(out):
+    if isinstance(out, (list, tuple)):
+        return [x for o in out for x in _flatten(o)]
+    return [out]
+
+
+NATIVE_NAMES = [
+    "cull_lod_heap", "cull_lod_select", "counting_argsort", "decode_positions",
+    "gather_encode_float32", "gather_encode_float64",
+    "gather_encode_uint16", "gather_encode_uint8", "group_levels_full",
+    "morton_encode", "parse_octree_meta", "quantize_morton",
+    "radix_argsort_u64", "take_rows",
+]
+
+
+@pytest.mark.parametrize("name", NATIVE_NAMES)
+def test_native_function_bit_equal_to_jax(name):
+    assert native.available() and jax_native.available()
+    cases = _native_cases()
+    assert sorted(cases) == sorted(NATIVE_NAMES)
+    got = _flatten(cases[name](native))
+    want = _flatten(cases[name](jax_native))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        if isinstance(w, np.ndarray):
+            _same(g, w)
+        else:
+            assert g == w
+
+
+def test_native_library_has_only_the_ports_functions():
+    h = native.lib()
+    for fn in ("tree_levels", "decode_to_f32_relative", "encode_positions_u8",
+               "encode_positions_u16"):
+        assert not hasattr(h, fn)
+    assert h.pcv_native_abi_version() == 3
+
+
+# --- protos, codec, node_id ---------------------------------------------------
+
+
+def _octree_meta_bytes(seed, version=13):
+    from point_cloud_viewer_tpu.protos import meta as M
+
+    rng = np.random.default_rng(seed)
+    nodes = [M.OctreeNodeProto(
+        id=(int(level) << 120) | int(p), num_points=int(c),
+        position_encoding=M.PositionEncodingProto(int(e)))
+        for level, p, c, e in zip(rng.integers(0, 22, 500),
+                                  rng.integers(0, 2 ** 40, 500),
+                                  rng.integers(0, 10 ** 6, 500),
+                                  rng.integers(1, 5, 500))]
+    return M.MetaProto(
+        version=version,
+        bounding_box=M.BoundingBoxProto(min=(-1.5, 2.0, 0.0),
+                                        max=(3.0, 4.25, 1e9)),
+        octree=M.OctreeMetaProto(resolution=0.001, nodes=nodes)).encode()
+
+
+def _meta_fields(meta):
+    octree = meta.octree
+    return (meta.version, tuple(meta.bounding_box.min),
+            tuple(meta.bounding_box.max), octree.resolution,
+            [(n.id, n.num_points, int(n.position_encoding))
+             for n in octree.nodes])
+
+
+def _case_meta_roundtrip():
+    from point_cloud_viewer_tpu.protos import meta as JM
+    from point_cloud_viewer_tpu_torch.protos import meta as PM
+
+    for version in (11, 12, 13):
+        raw = _octree_meta_bytes(RNG_SEED + version, version)
+        got, want = PM.MetaProto.decode(raw), JM.MetaProto.decode(raw)
+        assert _meta_fields(got) == _meta_fields(want)
+        if version == 13:
+            assert got.encode() == want.encode() == raw
+    nodes = [PM.OctreeNodeProto(id=(3 << 120) | 5, num_points=-1,
+                                position_encoding=PM.PositionEncodingProto(2))]
+    mine = PM.MetaProto(bounding_box=PM.BoundingBoxProto(max=(1.0, 2.0, 3.0)),
+                        octree=PM.OctreeMetaProto(resolution=0.5, nodes=nodes))
+    theirs = JM.MetaProto(
+        bounding_box=JM.BoundingBoxProto(max=(1.0, 2.0, 3.0)),
+        octree=JM.OctreeMetaProto(resolution=0.5, nodes=[
+            JM.OctreeNodeProto(id=(3 << 120) | 5, num_points=-1,
+                               position_encoding=JM.PositionEncodingProto(2))]))
+    assert mine.encode() == theirs.encode()
+    for bad in (b"\x08\x63", b"\x08\x0d"):  # version 99; no octree at all
+        with pytest.raises(ValueError) as e_port:
+            PM.MetaProto.decode(bad)
+        with pytest.raises(ValueError) as e_jax:
+            JM.MetaProto.decode(bad)
+        assert str(e_port.value) == str(e_jax.value)
+
+
+def _case_codec():
+    from point_cloud_viewer_tpu.ops import codec as JC
+    from point_cloud_viewer_tpu_torch.ops import codec as PC
+
+    rng = np.random.default_rng(RNG_SEED)
+    for edge, res in ((1.0, 0.001), (100.0, 1e-3), (1e6, 1e-3), (0.0, 1.0),
+                      (5.0, 10.0), (1e9, 1e-6)):
+        assert int(PC.position_encoding_for(edge, res)) == int(
+            JC.position_encoding_for(edge, res))
+    pos = rng.random((20_000, 3)) * 4.0 - 1.0
+    mn, edge = rng.random((20_000, 3)), rng.random(20_000) * 2.0
+    edge[:10] = 0.0
+    for enc in (1, 2, 3, 4):
+        e = PC.encode_positions(pos, mn, edge, PC.PositionEncoding(enc))
+        _same(e, JC.encode_positions(pos, mn, edge, JC.PositionEncoding(enc)))
+        _same(PC.decode_positions(e, mn, edge, PC.PositionEncoding(enc)),
+              JC.decode_positions(e, mn, edge, JC.PositionEncoding(enc)))
+
+
+def _case_node_id():
+    from point_cloud_viewer_tpu.math.geometry import Cube as JCube
+    from point_cloud_viewer_tpu.octree import node_id as JN
+    from point_cloud_viewer_tpu_torch.math.geometry import Cube as PCube
+    from point_cloud_viewer_tpu_torch.octree import node_id as PN
+
+    rng = np.random.default_rng(RNG_SEED)
+    levels = rng.integers(0, 41, 3000).astype(np.uint8)
+    hi = rng.integers(0, 2 ** 56, 3000, dtype=np.uint64) >> np.uint64(4)
+    lo = rng.integers(0, 2 ** 63, 3000, dtype=np.uint64)
+    root_p, root_j = PCube([1.0, -2.0, 3.0], 17.5), JCube([1.0, -2.0, 3.0], 17.5)
+    for g, w in zip(PN.bounding_cubes2(levels, hi, lo, root_p),
+                    JN.bounding_cubes2(levels, hi, lo, root_j)):
+        _same(g, w)
+    short = levels % 22
+    for g, w in zip(PN.bounding_cubes(short, lo >> np.uint64(1), root_p),
+                    JN.bounding_cubes(short, lo >> np.uint64(1), root_j)):
+        _same(g, w)
+    ids = [JN.NodeId.from_level_index(int(l), int(p))
+           for l, p in zip(short, lo >> np.uint64(1))]
+    mine = [PN.NodeId.from_level_index(int(l), int(p))
+            for l, p in zip(short, lo >> np.uint64(1))]
+    assert [str(n) for n in mine] == [str(n) for n in ids]
+    for g, w in zip(PN.unpack_ids(mine), JN.unpack_ids(ids)):
+        _same(g, w)
+
+
+@pytest.mark.parametrize("case", ["meta_roundtrip", "codec", "node_id"])
+def test_wire_and_codec_copies_match_jax(case):
+    {"meta_roundtrip": _case_meta_roundtrip, "codec": _case_codec,
+     "node_id": _case_node_id}[case]()
+
+
+# --- io.ply --------------------------------------------------------------------
+
+
+def _ply(path, n, fmt, offset=None, seed=0):
+    rng = np.random.default_rng(seed)
+    pos = rng.random((n, 3)) * 10.0
+    rgb = rng.integers(0, 256, (n, 3))
+    inten = rng.random(n).astype(np.float32)
+    props = ("property double x\nproperty double y\nproperty float z\n"
+             "property uchar red\nproperty uchar green\nproperty uchar blue\n"
+             "property uchar alpha\nproperty float intensity\n"
+             "property short skipped\n")
+    head = f"ply\nformat {fmt} 1.0\n"
+    if offset is not None:
+        head += "comment offset: {} {} {}\n".format(*offset)
+    head += f"element vertex {n}\n{props}end_header\n"
+    with open(path, "wb") as f:
+        f.write(head.encode("ascii"))
+        if fmt == "ascii":
+            for i in range(n):
+                f.write((f"{pos[i, 0]:.17g} {pos[i, 1]:.17g} "
+                         f"{np.float32(pos[i, 2]):.9g} {rgb[i, 0]} "
+                         f"{rgb[i, 1]} {rgb[i, 2]} 7 {inten[i]:.9g} -3\n")
+                        .encode("ascii"))
+            return
+        e = "<" if fmt == "binary_little_endian" else ">"
+        rows = np.empty(n, dtype=[("x", e + "f8"), ("y", e + "f8"),
+                                  ("z", e + "f4"), ("r", "u1"), ("g", "u1"),
+                                  ("b", "u1"), ("a", "u1"),
+                                  ("i", e + "f4"), ("s", e + "i2")])
+        rows["x"], rows["y"], rows["z"] = pos.T
+        rows["r"], rows["g"], rows["b"] = rgb.T
+        rows["a"], rows["i"], rows["s"] = 7, inten, -3
+        rows.tofile(f)
+
+
+@pytest.mark.parametrize("fmt,offset", [
+    ("binary_little_endian", None), ("binary_little_endian", (1.5, -2., 3.)),
+    ("binary_big_endian", None), ("ascii", None)])
+def test_ply_reader_batches_match_jax(tmp_path, fmt, offset):
+    from point_cloud_viewer_tpu.io.ply import PlyReader as JaxReader
+    from point_cloud_viewer_tpu_torch.io.ply import PlyReader
+
+    path = str(tmp_path / "c.ply")
+    n = 2_500 if fmt == "ascii" else 120_000
+    _ply(path, n, fmt, offset, seed=len(fmt))
+    got = list(PlyReader(path, batch_size=50_000))
+    want = list(JaxReader(path, batch_size=50_000))
+    assert len(got) == len(want) >= 1
+    for g, w in zip(got, want):
+        _same(g.position, w.position)
+        assert list(g.attributes) == list(w.attributes)
+        for name in w.attributes:
+            _same(g.attributes[name], w.attributes[name])
+
+
+# --- octree.octree ---------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def built_tree(tmp_path_factory):
+    """The same 160k-point cloud built by the port (CPU route) and by the
+    JAX package."""
+    rng = np.random.default_rng(RNG_SEED)
+    n = 160_000
+    position = np.concatenate([rng.random((n // 2, 3)) * 40.0,
+                               12.0 + rng.normal(0.0, 0.3, (n // 2, 3))])
+    attrs = {"color": rng.integers(0, 256, (n, 3), dtype=np.uint8),
+             "intensity": rng.random(n).astype(np.float32)}
+    port = str(tmp_path_factory.mktemp("port"))
+    ref = str(tmp_path_factory.mktemp("jax"))
+    build_octree(port, 0.001, JaxBatch(position=position, attributes=attrs),
+                 device="cpu")
+    jax_build(ref, 0.001, JaxBatch(position=position, attributes=attrs))
+    return port, ref
+
+
+def _camera_matrices():
+    from point_cloud_viewer_tpu_torch.viewer.camera import Camera
+
+    out = []
+    for i, (x, y, z) in enumerate([(20, 20, 90), (-30, 5, 10), (12, 12, 12),
+                                   (60, 60, 60)]):
+        cam = Camera(320, 240)
+        cam.position = np.array([x, y, z], dtype=float)
+        cam.theta, cam.phi = 0.4 * i, 0.3 + 0.2 * i
+        out.append(cam.world_to_gl())
+    return out
+
+
+@pytest.mark.parametrize("max_nodes", [None, 40])
+def test_octree_fields_and_visible_nodes_match_jax(built_tree, max_nodes):
+    from point_cloud_viewer_tpu.octree.octree import Octree as JaxOctree
+    from point_cloud_viewer_tpu_torch.octree.octree import Octree
+
+    port_dir, ref_dir = built_tree
+    mine, theirs = Octree.from_directory(port_dir), JaxOctree.from_directory(
+        ref_dir)
+    for field in ("levels", "path_hi", "path_lo", "num_points", "cube_mins",
+                  "cube_edges"):
+        _same(getattr(mine, field), getattr(theirs, field))
+    for matrix in _camera_matrices():
+        got = mine.get_visible_nodes(matrix, max_nodes=max_nodes)
+        want = theirs.get_visible_nodes(matrix, max_nodes=max_nodes)
+        assert [n.value for n in got] == [n.value for n in want]
+    node = theirs.node_ids[len(theirs) // 2]
+    a = mine.points_in_node(type(mine.node_ids[0])(node.value))
+    b = theirs.points_in_node(node)
+    _same(a.position, b.position)
+    for name in b.attributes:
+        _same(a.attributes[name], b.attributes[name])
+
+
+# --- the numpy fallbacks, with the native library unloaded ---------------------
+
+
+@pytest.fixture
+def no_native(monkeypatch):
+    """Both packages' host libraries unloaded: every native entry point
+    returns None and its caller takes its numpy fallback."""
+    monkeypatch.setattr(native, "lib", lambda: None)
+    monkeypatch.setattr(jax_native, "lib", lambda: None)
+    assert not native.available() and not jax_native.available()
+
+
+@pytest.mark.parametrize("route", ["in_core", "streamed"])
+def test_build_without_native_library_matches_jax(tmp_path, no_native, route):
+    from point_cloud_viewer_tpu.octree import streaming as JS
+    from point_cloud_viewer_tpu_torch.octree import streaming as PS
+    from tests.conftest import assert_dirs_byte_equal
+
+    rng = np.random.default_rng(RNG_SEED + 1)
+    n = 30_000
+    position = np.concatenate([rng.random((n // 2, 3)) * 20.0,
+                               6.0 + rng.normal(0.0, 0.2, (n // 2, 3))])
+    batch = JaxBatch(position=position, attributes={
+        "color": rng.integers(0, 256, (n, 3), dtype=np.uint8),
+        "intensity": rng.random(n).astype(np.float32)})
+    port, ref = str(tmp_path / "port"), str(tmp_path / "jax")
+    if route == "in_core":
+        build_octree(port, 0.001, batch, device="cpu")
+        jax_build(ref, 0.001, batch)
+    else:
+        PS.build_octree_streaming(port, 0.001, batch, bucket_levels=1,
+                                  spill_directory=str(tmp_path / "spill"),
+                                  device="cpu")
+        JS.build_octree_streaming(ref, 0.001, batch, bucket_levels=1)
+    assert_dirs_byte_equal(ref, port, context=f"{route} build, no native")
+
+
+@pytest.mark.parametrize("max_nodes", [None, 40])
+def test_host_cull_without_native_library_matches_jax(built_tree, no_native,
+                                                      max_nodes):
+    """The Octree's meta parse, numpy cull and node decode, and the
+    viewer's host cull, each against the JAX package's fallback."""
+    from point_cloud_viewer_tpu.octree.octree import Octree as JaxOctree
+    from point_cloud_viewer_tpu.ops import culling as JU
+    from point_cloud_viewer_tpu_torch.octree.octree import Octree
+    from point_cloud_viewer_tpu_torch.ops import culling as PU
+
+    port_dir, ref_dir = built_tree
+    mine, theirs = Octree.from_directory(port_dir), JaxOctree.from_directory(
+        ref_dir)
+    for field in ("levels", "path_hi", "path_lo", "num_points", "cube_mins",
+                  "cube_edges"):
+        _same(getattr(mine, field), getattr(theirs, field))
+    for matrix in _camera_matrices():
+        got = mine.get_visible_nodes(matrix, max_nodes=max_nodes)
+        want = theirs.get_visible_nodes(matrix, max_nodes=max_nodes)
+        assert [n.value for n in got] == [n.value for n in want]
+    node = theirs.node_ids[len(theirs) // 2]
+    a = mine.points_in_node(type(mine.node_ids[0])(node.value))
+    b = theirs.points_in_node(node)
+    _same(a.position, b.position)
+    k = 4000 if max_nodes is None else 40
+    args = _cull_args(k, RNG_SEED, np.float32)
+    for g, w in zip(PU.frustum_cull_lod_select_host(*args),
+                    JU.frustum_cull_lod_select_host(*args)):
+        _same(g, w)
+
+
+# --- viewer.camera -----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("width,height", [(1280, 720), (640, 480), (97, 31)])
+def test_camera_matrices_match_jax(width, height):
+    from point_cloud_viewer_tpu.viewer.camera import Camera as JaxCamera
+    from point_cloud_viewer_tpu_torch.viewer.camera import Camera
+
+    mine, theirs = Camera(width, height), JaxCamera(width, height)
+    for step in range(5):
+        for cam in (mine, theirs):
+            cam.position = np.array([3.0 * step, -2.0, 7.5])
+            cam.theta, cam.phi = 0.7 * step, -0.2 + 0.1 * step
+            cam.moving["forward"] = step % 2 == 0
+            cam.turning["left"] = step % 3 == 0
+            cam.moved = True
+        assert mine.update(1 / 60) == theirs.update(1 / 60)
+        _same(mine.world_to_gl(), theirs.world_to_gl())
+        _same(mine.position, theirs.position)
+        _same(mine.projection.matrix, theirs.projection.matrix)

@@ -191,13 +191,14 @@ def test_cli_matches_jax_cli(tmp_path, capsys):
     assert "Built octree with 2000 points" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flags", [["--streaming"], ["--mesh", "2"], []])
+@pytest.mark.parametrize(
+    "flags", [["--streaming"], ["--mesh", "2"], ["--no-use_device"]])
 def test_cli_unported_routes_exit(tmp_path, flags, capsys):
     ply = str(tmp_path / "tiny.ply")
     _write_tiny_ply(ply, 10, seed=1)
     args = [ply, "--output_directory", str(tmp_path / "o"), *flags]
-    if "--mesh" in flags:  # --streaming is ported, but not without a device
-        args.append("--use_device")
+    if "--streaming" in flags:  # ported, but not without a device
+        args.append("--no-use_device")
     with pytest.raises(SystemExit) as exc:
         cli_main(args)
     assert exc.value.code != 0

@@ -424,8 +424,7 @@ def test_cli_streaming_argument_errors(tmp_path, capsys, flags, use_device,
     ply = str(tmp_path / "tiny.ply")
     _write_tiny_ply(ply, 10, seed=1)
     args = [ply, "--output_directory", str(tmp_path / "o"), *flags]
-    if use_device:
-        args.append("--use_device")
+    args.append("--use_device" if use_device else "--no-use_device")
     with pytest.raises(SystemExit) as exc:
         cli_main(args)
     assert exc.value.code != 0
