@@ -13,8 +13,11 @@ Phases (any failure raises and the exit code is non-zero):
                 beside them, its host library (native/pcv_native.cpp) with
                 g++, so no later wall time holds a build;
   3. kernels -- K1-K4 against their plain PyTorch versions on the card, at
-                16M and 64M elements (ragged n), bit for bit; CUDA-event
-                median times of kernel and plain version;
+                16M and 64M elements (ragged n), bit for bit, and at 16M
+                K1 (six modes) and K2 (every level) on views at element
+                offsets 1-3 (unaligned bases) and K2 on an input whose only
+                start is element 0; CUDA-event median times of kernel and
+                plain version, K1 over torch.cumsum;
   4. core    -- the device derivation (build_tree_device_codes_grouped) at
                 16M and 64M synthetic codes on the card against the same
                 call on CPU tensors (the kernels' plain versions), every
@@ -78,6 +81,7 @@ import time
 import numpy as np
 
 SIZES = (16_000_017, 64_000_017)     # phase 3: ragged element counts
+UNALIGNED = (1, 2, 3)                # phase 3: element offsets of views
 CORE_SIZES = (16_000_000, 64_000_000)  # phase 4: synthetic codes
 E2E_POINTS = 16_000_000              # phase 5: the README's in-core cloud
 BIG_POINTS = 64_000_000              # phase 7b: a ~2 GB PLY, streamed
@@ -138,6 +142,28 @@ def cuda_ms(fn, setup=None, reps=REPS) -> float:
     return statistics.median(times)
 
 
+def train_ms(fn, count: int = 20) -> float:
+    """Median over REPS of the mean CUDA-event time in ms of `count`
+    back-to-back calls of fn: once the card is busy, the host's time to
+    enqueue each call hides behind the one before, so this is the device
+    time of a call (cuda_ms adds the host's time to the first launch)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(count):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / count)
+    return statistics.median(times)
+
+
 def synthetic_codes(n: int, seed: int) -> np.ndarray:
     """(n,) uint64 Morton codes < 2^63: uniform, plus dense cells of
     several sizes (deep splits) and a run of the maximal code 2^63 - 1."""
@@ -164,8 +190,21 @@ def max_abs_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
+def unaligned(t, offset: int):
+    """A copy of t as a view at `offset` elements into a fresh buffer: its
+    base is not 16-B aligned for offsets 1-3 of i32 or 1-15 of u8."""
+    import torch
+
+    buf = torch.empty(t.shape[0] + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:]
+    view.copy_(t)
+    return view
+
+
 def phase_kernels(record: dict) -> None:
-    """K1-K4 against their plain versions at SIZES; tolerance 0."""
+    """K1-K4 against their plain versions at SIZES, K1 and K2 also on
+    unaligned views and K2 on a start-only input at SIZES[0]; tolerance
+    0."""
     import torch
 
     from point_cloud_viewer_tpu_torch.ops import level_cuda as LC
@@ -193,14 +232,39 @@ def phase_kernels(record: dict) -> None:
                 record["K1"]["err"] = max(record["K1"]["err"], err)
                 if err:
                     raise AssertionError(f"K1 {kind} rev={rev} {tag}: {err}")
+        if n == SIZES[0]:
+            for offset in UNALIGNED:
+                for kind in ("max", "min", "sum"):
+                    x = unaligned(small if kind == "sum" else wide, offset)
+                    for rev in (False, True):
+                        err = max_abs_err(SC.scan_1d(x, kind, rev),
+                                          SC.scan_1d_plain(x, kind, rev))
+                        record["K1"]["err"] = max(record["K1"]["err"], err)
+                        if err:
+                            raise AssertionError(
+                                f"K1 {kind} rev={rev} offset {offset} "
+                                f"{tag}: {err}")
+            log(f"K1 scan_1d {tag} at element offsets {UNALIGNED} "
+                "(unaligned bases): six modes bit-equal")
         ms = cuda_ms(lambda: SC.scan_1d(small, "sum"))
         pms = cuda_ms(lambda: SC.scan_1d_plain(small, "sum"))
         lms = cuda_ms(lambda: torch.cumsum(small, 0, dtype=torch.int32))
         log(f"K1 scan_1d sum {tag}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-            f"torch.cumsum {lms:.4f} ms")
+            f"torch.cumsum {lms:.4f} ms; kernel / torch.cumsum "
+            f"{ms / lms:.4f}")
+        tms = train_ms(lambda: SC.scan_1d(small, "sum"))
+        tlms = train_ms(lambda: torch.cumsum(small, 0, dtype=torch.int32))
+        log(f"K1 scan_1d sum {tag}, 20 calls back to back: kernel "
+            f"{tms:.4f} ms a call, torch.cumsum {tlms:.4f} ms; kernel / "
+            f"torch.cumsum {tms / tlms:.4f}")
+        if n == SIZES[0]:
+            off1 = unaligned(small, 1)
+            log(f"K1 scan_1d sum {tag} at offset 1 (scalar loads): kernel "
+                f"{cuda_ms(lambda: SC.scan_1d(off1, 'sum')):.4f} ms")
+            del off1
         record["K1"]["times"][n] = (ms, pms)
         record["K1"]["lib"][n] = lms
-        del wide, small
+        del wide, small, x
 
         # K2-K4 over the boundary array of sorted codes with dense cells,
         # every level, kernel and plain version from the same state.
@@ -243,6 +307,28 @@ def phase_kernels(record: dict) -> None:
             record["K4"]["err"] = max(record["K4"]["err"], err4)
             if err4:
                 raise AssertionError(f"level {level} {tag}: K4 err {err4}")
+        if n == SIZES[0]:
+            # K2 on unaligned views, and on an input whose only start is
+            # element 0: every tile's look-back crosses the tiles before it.
+            start_only = torch.full((n,), DEPTH + 1, dtype=torch.uint8,
+                                    device=dev)
+            start_only[:1].fill_(0)
+            cases = {f"offset {o}": unaligned(b, o) for o in UNALIGNED}
+            cases["start only"] = start_only
+            for name, bb in cases.items():
+                for level in range(1, DEPTH + 1):
+                    err2 = max_abs_err(LC.seg_start_pass(bb, level),
+                                       LC.seg_start_pass_plain(bb, level))
+                    record["K2"]["err"] = max(record["K2"]["err"], err2)
+                    if err2:
+                        raise AssertionError(f"K2 {name} level {level} "
+                                             f"{tag}: {err2}")
+            log(f"K2 seg_start_pass {tag}: {DEPTH} levels bit-equal on "
+                f"{list(cases)}; start only, level 8: kernel "
+                f"{cuda_ms(lambda: LC.seg_start_pass(start_only, 8)):.4f} "
+                f"ms; offset 1, level 8: kernel "
+                f"{cuda_ms(lambda: LC.seg_start_pass(cases['offset 1'], 8)):.4f} ms")
+            del cases, start_only
         log(f"K2/K3 {tag}: {DEPTH} levels bit-equal; K4 {tag}: "
             f"{promoted_levels} non-empty levels bit-equal; leaf levels "
             f"{torch.bincount(leaf, minlength=DEPTH + 1).tolist()}")
@@ -262,6 +348,9 @@ def phase_kernels(record: dict) -> None:
                    cuda_ms(lambda c: LC.promote_pass_plain(b, c, busiest[1]),
                            lambda: (snap["cur"].clone(),))),
         }
+        log(f"K2 seg_start_pass {tag}, level 8, 20 calls back to back: "
+            f"kernel {train_ms(lambda: LC.seg_start_pass(b, 8)):.4f} ms a "
+            "call")
         for k, (ms, pms) in times.items():
             at = (f"level {busiest[1]}, {busiest[0]} active" if k == "K4"
                   else "level 8")

@@ -8,36 +8,44 @@
 // which sweep (1024, 128) blocks in grid order with SMEM carries.
 //
 // Bound: device-memory bytes.  Per level the Pallas design moves about
-// 5 / 7 / 3 B per element (level_pallas.py:18-19).  Here each sweep is the
-// reduce-then-scan skeleton of scan_skeleton.cuh, which reads its inputs
-// twice: K2 about 6 B (b twice, seg_start written), K3 about 7-10 B (b
-// twice, seg_start, leaf/found read and written only where they change),
-// K4 about 4-5 B (b and cur twice, cur written only where promoted).
+// 5 / 7 / 3 B per element (level_pallas.py:18-19).
+//   K2 is the one-launch decoupled look-back scan of lookback_scan.cuh: it
+//   reads b once with one 16-B load of 16 bytes a lane and writes seg_start
+//   once, staged through shared memory so that it goes out as 16 B a lane:
+//   5 B an element, its bound.  A tile holding a segment start knows its
+//   inclusive prefix (its last start) without its predecessors, so look-
+//   backs stop at the nearest tile with a start.
+//   K3 and K4 are the reduce-then-scan skeleton of scan_skeleton.cuh, which
+//   reads its inputs twice: K3 about 7-10 B (b twice, seg_start, leaf/found
+//   read and written only where they change), K4 about 4-5 B (b and cur
+//   twice, cur written only where promoted).
 // The prologue (b <= level) and the epilogue are fused into the sweep, so
 // no i32 temporary other than seg_start is materialised.
 //
 // Every quantity is an exact integer, so each kernel is bit-equal to its
 // plain PyTorch version (point_cloud_viewer_tpu_torch/ops/level_cuda.py).
 
-#include "scan_skeleton.cuh"
+#include "lookback_scan.cuh"
 
 namespace pcv {
 namespace {
 
 // ---- K2: seg_start[i] = latest j <= i with b[j] <= level (running max).
 struct LoadSegStart {
-  const uint8_t* b;
+  using In = uint8_t;
+  const uint8_t* p;
   int level;
-  __device__ int load(long long i) const {
-    return b[i] <= level ? static_cast<int>(i) : 0;
+  __device__ int lift(long long i, uint8_t b) const {
+    return b <= level ? static_cast<int>(i) : 0;
   }
+  // Positions grow along the sweep, so a tile past the first whose
+  // aggregate is a start (> 0) holds the running max of everything so far.
+  __device__ bool closes(int agg) const { return agg > 0; }
 };
 
 struct StoreSegStart {
-  int* seg_start;
-  __device__ void store(long long i, int, int incl) const {
-    seg_start[i] = incl;
-  }
+  int* out;
+  __device__ int value(int, int incl) const { return incl; }
 };
 
 // ---- K3: seg_end[i] = first j > i with b[j] <= level, else n: the
@@ -123,11 +131,11 @@ struct Promote {
 
 extern "C" {
 
-// `agg`: ceil(n / tile) int32 scratch.
+// `scratch`: ceil(n / 8192) + 1 u64 words, cleared here on `stream`.
 int pcv_seg_start(const uint8_t* b, int* seg_start, long long n, int level,
-                  int* agg, void* stream) {
-  return pcv::run_sweep<pcv::MaxOp, false>(
-      pcv::LoadSegStart{b, level}, pcv::StoreSegStart{seg_start}, n, agg,
+                  unsigned long long* scratch, void* stream) {
+  return pcv::run_lookback<pcv::MaxOp, false>(
+      pcv::LoadSegStart{b, level}, pcv::StoreSegStart{seg_start}, n, scratch,
       static_cast<cudaStream_t>(stream));
 }
 

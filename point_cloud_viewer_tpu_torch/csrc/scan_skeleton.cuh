@@ -1,6 +1,8 @@
-// Reduce-then-scan skeleton shared by every carried sweep of the port
-// (scan.cu: K1 scan_1d; level.cu: K2 seg_start, K3 leaf_update, K4 promote;
-// leaf_levels.cu: K6 uses its block scans and the in-place carry scan).
+// Reduce-then-scan skeleton of the port's carried sweeps K3 leaf_update and
+// K4 promote (level.cu); K6 (leaf_levels.cu) uses its block scans and the
+// in-place carry scan.  K1 (scan.cu) and K2 (level.cu seg_start) run the
+// one-launch decoupled look-back scan of lookback_scan.cuh, which shares
+// the operators below.
 //
 // The Pallas kernels these replace (point_cloud_viewer_tpu/ops/scan_pallas.py,
 // ops/level_pallas.py) keep a running carry in SMEM across a grid that the
@@ -24,8 +26,8 @@
 // Bound: device-memory bytes.  Pass 1 and pass 3 each read the operands
 // once, pass 3 writes the outputs; pass 2 touches n / kTile aggregates.
 // Layout: thread t of a tile owns kItems consecutive elements (a blocked
-// arrangement read with scalar loads; a shared-memory transpose to wide
-// coalesced loads, or a single-pass decoupled look-back, is later work).
+// arrangement read with scalar loads).  lookback_scan.cuh reads once, with
+// 16-B coalesced loads; moving K3 and K4 onto it is the next step.
 #pragma once
 
 #include <climits>

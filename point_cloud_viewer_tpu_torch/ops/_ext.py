@@ -31,6 +31,10 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libpcv_torch_kernels.so")
 
+# Elements a tile of the look-back scan (csrc/lookback_scan.cuh kLbTile):
+# K1 and K2 size their scratch with it; lib() checks the library agrees.
+LOOKBACK_TILE = 8192
+
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -40,6 +44,7 @@ NVCC_FLAGS = [
 # plain int would be cut to 32 bits), element counts c_longlong.
 _SIGNATURES = {
     "pcv_tile_elems": ([], c_int),
+    "pcv_lookback_tile_elems": ([], c_int),
     "pcv_error_string": ([c_int], c_char_p),
     "pcv_scan_i32": (
         [c_void_p, c_void_p, c_longlong, c_int, c_int, c_void_p, c_void_p],
@@ -162,6 +167,11 @@ def lib() -> ctypes.CDLL:
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
                 fn.restype = restype
+            if handle.pcv_lookback_tile_elems() != LOOKBACK_TILE:
+                raise RuntimeError(
+                    f"{LIB_PATH}: look-back tile "
+                    f"{handle.pcv_lookback_tile_elems()} != LOOKBACK_TILE "
+                    f"{LOOKBACK_TILE}")
             _lib = handle
         return _lib
 
@@ -211,3 +221,13 @@ def scratch(n: int, per_tile: int, device):
 
     tiles = -(-n // lib().pcv_tile_elems())
     return torch.empty(tiles * per_tile, dtype=torch.int32, device=device)
+
+
+def lookback_scratch(n: int, device):
+    """Scratch of one look-back sweep (K1, K2): a tile counter and one
+    64-bit state word for each of the ceil(n / LOOKBACK_TILE) tiles.  The C
+    entry clears it on the launch's stream, so torch.empty suffices."""
+    import torch
+
+    return torch.empty(-(-n // LOOKBACK_TILE) + 1, dtype=torch.int64,
+                       device=device)

@@ -15,6 +15,14 @@ Unlike the JAX kernels, which return new arrays, these update their u8
 state in place (no second copy of the state per level), and they take
 unpadded arrays: the CUDA kernels mask the ragged tail themselves.
 
+Bounds (device-memory bytes an element): K2 5 (u8 b in, i32 out); K3 9;
+K4 3.  K2 is one launch (after a memset of its scratch), the decoupled
+look-back scan of csrc/lookback_scan.cuh: b is read once, 16 bytes a lane,
+and seg_start written once, staged through shared memory to go out as 16 B
+a lane; a tile holding a segment start publishes its prefix at once, so
+look-backs stop there.  K3 and K4 are three launches of the reduce-then-
+scan skeleton (csrc/scan_skeleton.cuh), which reads the input twice.
+
 On a CUDA tensor each wrapper launches its kernel from csrc/level.cu and
 counts it in `<wrapper>.launches`; on a CPU tensor it runs the plain
 PyTorch version beside it, the looped formulation of
@@ -76,7 +84,8 @@ def _check(name: str, b: torch.Tensor, *state) -> None:
 
 
 def seg_start_pass(b: torch.Tensor, level: int) -> torch.Tensor:
-    """b (N,) u8 -> seg_start (N,) int32 (K2)."""
+    """b (N,) u8 -> seg_start (N,) int32 (K2), one sweep counted in
+    `seg_start_pass.launches`."""
     _check("seg_start_pass", b)
     if not _ext.on_cuda("seg_start_pass", b):
         return seg_start_pass_plain(b, level)
@@ -86,9 +95,9 @@ def seg_start_pass(b: torch.Tensor, level: int) -> torch.Tensor:
         return out
     lib = _ext.lib()
     with torch.cuda.device(b.device):
-        agg = _ext.scratch(n, 1, b.device)
+        scratch = _ext.lookback_scratch(n, b.device)
         err = lib.pcv_seg_start(b.data_ptr(), out.data_ptr(), n, int(level),
-                                agg.data_ptr(), _ext.stream_ptr(b))
+                                scratch.data_ptr(), _ext.stream_ptr(b))
     _ext.check(err, "seg_start_pass")
     seg_start_pass.launches += 1
     return out

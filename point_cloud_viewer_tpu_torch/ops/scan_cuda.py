@@ -5,6 +5,11 @@ kernel at scan_pallas.py:148).  On a CUDA tensor `scan_1d` launches the
 hand-written kernel of csrc/scan.cu; on a CPU tensor it runs the plain
 PyTorch version `scan_1d_plain`.  Both are bit-equal to
 torch.cummax / cummin / cumsum and their flipped twins.
+
+Bound: device-memory bytes, 8 B an element (i32 in, i32 out).  The kernel
+is one launch (after a memset of its scratch): a decoupled look-back scan
+(csrc/lookback_scan.cuh) that reads each element once and writes it once,
+16 B a lane with neighbouring lanes on neighbouring addresses.
 """
 
 from __future__ import annotations
@@ -34,7 +39,9 @@ def scan_1d(x: torch.Tensor, kind: str, reverse: bool = False) -> torch.Tensor:
     """Inclusive prefix (or suffix) scan of a 1-D int32 tensor.
 
     CPU tensor: `scan_1d_plain`.  CUDA tensor: the K1 kernel, on PyTorch's
-    current stream, counted in `scan_1d.launches`."""
+    current stream (one sweep, counted in `scan_1d.launches`); a view at
+    any element offset is taken as it is, with scalar loads when its base
+    is not 16-B aligned."""
     if kind not in KINDS:
         raise ValueError(f"unknown scan kind {kind!r}")
     _ext.check_1d("scan_1d", x, torch.int32)
@@ -46,10 +53,10 @@ def scan_1d(x: torch.Tensor, kind: str, reverse: bool = False) -> torch.Tensor:
         return out
     lib = _ext.lib()
     with torch.cuda.device(x.device):
-        agg = _ext.scratch(n, 1, x.device)
+        scratch = _ext.lookback_scratch(n, x.device)
         err = lib.pcv_scan_i32(
             x.data_ptr(), out.data_ptr(), n, KINDS[kind], int(reverse),
-            agg.data_ptr(), _ext.stream_ptr(x),
+            scratch.data_ptr(), _ext.stream_ptr(x),
         )
     _ext.check(err, "scan_1d")
     scan_1d.launches += 1

@@ -226,8 +226,8 @@ def build_tree_device_codes_grouped(
     sole = run_start & next_start
     sole[n_real:].fill_(False)
 
-    # _scan (tree_build.py:97-124): on CUDA always the K1 kernel (no size
-    # gate yet: an H100 measurement sets one later).
+    # _scan (tree_build.py:97-124): on CUDA always the K1 kernel, one
+    # look-back sweep.
     rank = scan_1d(sole.to(torch.int32), "sum") - 1
     extras_total = rank[-1] + 1
     slot = torch.where(sole & (rank < extras_cap), rank, extras_cap).long()

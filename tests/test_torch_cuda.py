@@ -47,16 +47,38 @@ def _sorted_bounds(n, seed, device):
     return tb._bound_levels(sorted_codes.to(device), 21)
 
 
-@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 1_000_003])
-def test_scan_kernel_matches_plain(cuda, n):
-    rng = np.random.default_rng(n)
-    x = torch.from_numpy(rng.integers(-1000, 1000, n).astype(np.int32)).to(cuda)
+_TILE = 8192  # csrc/lookback_scan.cuh kLbTile (K1 and K2)
+_TILE_SIZES = [1, 3, _TILE - 1, _TILE, _TILE + 1, 2 * _TILE + 5, 1_000_003]
+
+
+def _on_both_streams(fn):
+    """fn() twice in a row on the current stream, then on a second stream
+    (each call clears its own scratch; stale tile states would show)."""
+    first, again = fn(), fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        other = fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    return first, again, other
+
+
+@pytest.mark.parametrize("n", _TILE_SIZES)
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_scan_kernel_matches_plain(cuda, n, offset):
+    """All six modes bit for bit; offsets 1-3 make the base unaligned for
+    16-B loads, so the kernel takes its scalar variant."""
+    rng = np.random.default_rng(n + offset)
+    x = torch.from_numpy(rng.integers(-1000, 1000, n + offset)
+                         .astype(np.int32)).to(cuda)[offset:]
     before = SC.scan_1d.launches
     for kind in ("max", "min", "sum"):
         for reverse in (False, True):
-            assert torch.equal(SC.scan_1d(x, kind, reverse),
-                               SC.scan_1d_plain(x, kind, reverse))
-    assert SC.scan_1d.launches == before + 6
+            want = SC.scan_1d_plain(x, kind, reverse)
+            for got in _on_both_streams(lambda: SC.scan_1d(x, kind, reverse)):
+                assert torch.equal(got, want), (kind, reverse)
+    assert SC.scan_1d.launches == before + 18
 
 
 @pytest.mark.parametrize("n", [1, 4095, 4097, 1_000_003])
@@ -78,6 +100,28 @@ def test_level_kernels_match_plain(cuda, n):
         ck = LC.promote_pass(b, cur.clone(), level)
         LC.promote_pass_plain(b, cur, level)
         assert torch.equal(ck, cur)
+
+
+@pytest.mark.parametrize("n", _TILE_SIZES)
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("start_only", [False, True])
+def test_seg_start_kernel_offsets_and_start_only(cuda, n, offset,
+                                                 start_only):
+    """K2 at every level bit for bit, on views at element offsets 0-3 (1-3:
+    unaligned bases) and on an input whose only start is element 0, so the
+    look-back crosses every tile; twice in a row and on a second stream."""
+    if start_only:
+        b = torch.full((n + offset,), 22, dtype=torch.uint8)
+        b[offset] = 0
+    else:
+        b = _sorted_bounds(n + offset, n, "cpu")
+    b = b.to(cuda)[offset:]
+    before = LC.seg_start_pass.launches
+    for level in range(1, 22):
+        want = LC.seg_start_pass_plain(b, level)
+        for got in _on_both_streams(lambda: LC.seg_start_pass(b, level)):
+            assert torch.equal(got, want), level
+    assert LC.seg_start_pass.launches == before + 63
 
 
 def test_grouped_core_on_card_matches_cpu(cuda):

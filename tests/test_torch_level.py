@@ -12,6 +12,7 @@ import torch
 from point_cloud_viewer_tpu.ops import level_pallas as LP
 from point_cloud_viewer_tpu.ops import morton as jax_morton
 from point_cloud_viewer_tpu.ops import tree_build as jax_tb
+from point_cloud_viewer_tpu_torch.ops import _ext
 from point_cloud_viewer_tpu_torch.ops import level_cuda as LC
 from point_cloud_viewer_tpu_torch.ops.tree_build import _bound_levels
 
@@ -52,9 +53,12 @@ def _pad(x, value):
                    constant_values=value)
 
 
+_TILE = _ext.LOOKBACK_TILE  # K2's CUDA tile (lookback_scan.cuh)
 _CASES = [
     (_BLOCK - 1, False), (_BLOCK, False), (_BLOCK + 1, False),
     (3 * _BLOCK + 17, False), (2 * _BLOCK + 5, True),
+    (_TILE - 1, False), (_TILE, False), (_TILE + 1, False),
+    (2 * _TILE + 5, False),
 ]
 
 
@@ -95,6 +99,21 @@ def test_promote_matches_jax_pallas(n, one_cell):
             LP.promote_pass(b_pad, _pad(cur, 0), level, interpret=True))[:n]
         LC.promote_pass(b_t, cur_t, level)
         np.testing.assert_array_equal(cur_t.numpy(), cur)
+
+
+@pytest.mark.parametrize("n", [_TILE - 1, _TILE + 1, 2 * _TILE + 5])
+def test_seg_start_single_start_matches_jax_pallas(n):
+    """K2 where element 0 is the only start: the shallow levels' case, in
+    which the carry crosses every block (and, on the card, every tile's
+    look-back runs back to the first tile)."""
+    b = np.full(n, _DEPTH + 1, dtype=np.uint8)
+    b[0] = 0
+    b_pad = _pad(b, 255)
+    for level in range(1, _DEPTH + 1):
+        want = np.asarray(LP.seg_start_pass(b_pad, level, interpret=True))[:n]
+        got = LC.seg_start_pass(torch.from_numpy(b), level)
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert not want.any()
 
 
 def test_plain_versions_leave_counters_at_zero():
