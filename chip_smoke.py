@@ -21,12 +21,14 @@ Phases (any failure raises and the exit code is non-zero):
   4. core    -- the device derivation (build_tree_device_codes_grouped) at
                 16M and 64M synthetic codes on the card against the same
                 call on CPU tensors (the kernels' plain versions), every
-                output bit for bit;
+                output bit for bit; where its time goes, step by step
+                (code sort, leaf stage, K4 sweeps, key sort, extras);
   5. e2e     -- a 16M-point PLY through the port's CLI
                 (cli.build_octree, whose defaults derive the tree on the
                 card) byte-compared with the same CLI run with --device
                 cpu; per-phase times and
-                the main path's kernel launch counts;
+                the main path's kernel launch counts (K1, K4 and the K6
+                leaf stage launched; K2 and K3, which it replaced, not);
   6. cull    -- the viewer's device cull: a. K5 against its plain version
                 on a 1,048,576-node table (partial view, all visible, > 32
                 axes, K = 0, a 64-frame batch), bit for bit, with CUDA-event
@@ -36,10 +38,14 @@ Phases (any failure raises and the exit code is non-zero):
                 (cli.view --frames 60, which culls on the card by default)
                 on phase 5's octree:
                 K5 launches, visible nodes, a decodable final PNG;
-  7. leaf + streaming -- a. K6 at 16M and 64M sorted synthetic codes against
-                its plain version and the device core's leaf output, bit for
-                bit, with CUDA-event medians of K6, its plain version, the
-                21-level K2 + K3 loop and the boundary levels it starts from;
+  7. leaf + streaming -- a. K6 at 16M and 64M sorted synthetic codes: the
+                leaf stage (b and leaf from the codes) against its plain
+                version and against _bound_levels + the K2 + K3 loop it
+                replaced, in core, as a streamed bucket (root level 2) and
+                with pad rows; the public K6 against its plain version and
+                the device core's leaf; bit for bit, with CUDA-event
+                medians of the stage alone, the public K6, the 21-level
+                K2 + K3 loop and _bound_levels;
                 b. phase 5's PLY through cli.build_octree --use_device
                 --streaming, byte-compared with phase 5's in-core output, then
                 a 64M-point PLY built in core and streamed on the card and
@@ -98,6 +104,10 @@ PROBE_ITERS = 20                     # bench.py:144
 # counts two operations), at the 700 W power limit.
 FP32_PEAK_OPS = 67e12
 DEVICE = "cuda"
+# The build's kernels (K6: the leaf stage from the codes), and those its
+# leaf stage replaced, which must not run on it.
+BUILD_PATH = ("K1", "K4", "K6")
+OFF_PATH = ("K2", "K3")
 
 
 def log(*args) -> None:
@@ -360,6 +370,61 @@ def phase_kernels(record: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def core_split(codes, n: int) -> dict:
+    """Where the device core's time goes: build_tree_device_codes_grouped's
+    steps run one after another as it runs them, with a CUDA event between
+    steps (no host sync inside); median ms of each step over 3 runs."""
+    import torch
+
+    from point_cloud_viewer_tpu_torch.ops import leaf_levels_cuda as K6
+    from point_cloud_viewer_tpu_torch.ops import level_cuda as LC
+    from point_cloud_viewer_tpu_torch.ops import scan_cuda as SC
+
+    def steps():
+        vals, perm = torch.sort(codes, stable=True)
+        idx = perm.to(torch.int32)
+        yield "code sort"
+        b, leaf = K6.leaf_stage(vals, DEPTH, DEPTH, LEAF_MAX_POINTS)
+        yield "leaf stage (K6)"
+        cur = leaf.clone()
+        for level in range(DEPTH, 0, -1):
+            LC.promote_pass(b, cur, level)
+        yield f"{DEPTH} x K4"
+        sorted_key, by_key = torch.sort(cur, stable=True)
+        idx[by_key]
+        torch.diff(torch.searchsorted(
+            sorted_key.to(torch.int32),
+            torch.arange(DEPTH + 3, dtype=torch.int32, device=codes.device)))
+        yield "key sort + counts"
+        shift = 3 * (DEPTH - leaf[1:].to(torch.int64))
+        same = (leaf[1:] == leaf[:-1]) & (
+            (vals[1:] >> shift) == (vals[:-1] >> shift))
+        run_start = torch.cat([same.new_ones(1), ~same])
+        sole = run_start & torch.cat([run_start[1:], run_start.new_ones(1)])
+        rank = SC.scan_1d(sole.to(torch.int32), "sum") - 1
+        cap = max(512, n >> 6)
+        slot = torch.where(sole & (rank < cap), rank, cap).long()
+        torch.zeros(cap + 1, dtype=torch.int32,
+                    device=codes.device).scatter_(0, slot, idx)
+        yield "extras (K1 + scatter)"
+
+    runs = []
+    for _ in range(4):  # a warm-up, then 3
+        torch.cuda.synchronize()
+        marks = [torch.cuda.Event(enable_timing=True)]
+        marks[0].record()
+        names = []
+        for name in steps():
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+            names.append(name)
+        torch.cuda.synchronize()
+        runs.append([a.elapsed_time(b) for a, b in zip(marks, marks[1:])])
+    return {name: statistics.median(r[i] for r in runs[1:])
+            for i, name in enumerate(names)}
+
+
 def phase_core() -> None:
     """The device derivation on the card against the same call on CPU
     tensors, every output bit for bit."""
@@ -395,6 +460,10 @@ def phase_core() -> None:
             f"{n / s / 1e6:.3f} Mpts/s (codes resident); runs "
             f"{[round(x, 6) for x in secs]} s; peak device memory "
             f"{peak / 2**30:.3f} GiB")
+        split = core_split(on[DEVICE], n)
+        log(f"core n={n} split (CUDA events between steps, median of 3, "
+            "ms): " + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+            + f"; sum {sum(split.values()):.4f}")
 
         t0 = time.perf_counter()
         ref = run("cpu")
@@ -471,6 +540,15 @@ def run_cli(args: list, phase_times: dict) -> str:
     return out
 
 
+def check_build_launches(where: str, launches: dict) -> None:
+    """The build path launched each of BUILD_PATH and none of OFF_PATH."""
+    missing = [k for k in BUILD_PATH if launches[k] <= 0]
+    stray = [k for k in OFF_PATH if launches[k] != 0]
+    if missing or stray:
+        raise AssertionError(f"{where}: kernels not launched on the build "
+                             f"path {missing}; launched off it {stray}")
+
+
 def phase_e2e(wrappers: dict, tmp: str) -> tuple:
     """16M points through the CLI on the card, held byte for byte against
     the CLI with --device cpu; returns the main path's launch counts, the
@@ -508,10 +586,7 @@ def phase_e2e(wrappers: dict, tmp: str) -> tuple:
     files = dirs_byte_equal(a_dir, b_dir)
     log(f"e2e: card == CPU route, {files} files byte-equal; "
         f"{said.group(2)} nodes hold all {E2E_POINTS} points")
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing}")
+    check_build_launches("e2e", launches)
     shutil.rmtree(b_dir)
     return launches, a_dir, ply, wall
 
@@ -885,10 +960,52 @@ def phase_view(octree_dir: str, tmp: str) -> int:
 # --- phase 7: K6 and the streaming build ----------------------------------
 
 
-def phase_leaf_levels(record: dict) -> int:
-    """7a: K6 at SIZES sorted synthetic codes against its plain version and
-    the device core's leaf output (tolerance 0); returns K6's launches on
-    its path (the compared calls, not the timed ones)."""
+def kernel_split(fn, reps: int = 5) -> dict:
+    """Device ms of each CUDA kernel that fn launches, by name, averaged
+    over `reps` calls after a warm-up (torch.profiler); {} when the
+    profiler sees no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        if us and "pcv::" in ev.key:
+            name = re.sub(r"^(void )?pcv::\(anonymous namespace\)::", "",
+                          ev.key).split("(")[0]
+            out[name] = out.get(name, 0.0) + us / 1e3 / reps
+    return out
+
+
+def bucket_codes(codes, root_level: int):
+    """The codes moved into one level-`root_level` cell (their top 3 x
+    root_level bits replaced by those of the first code), as a streamed
+    bucket's derivation sees them; still sorted."""
+    import torch
+
+    low = 3 * (DEPTH - root_level)
+    return torch.sort((codes & ((1 << low) - 1))
+                      | (codes[:1] >> low << low)).values
+
+
+def phase_leaf_levels(record: dict) -> None:
+    """7a: K6 at SIZES sorted synthetic codes.  The leaf stage (b and the u8
+    leaf from the codes, the build's entry) against its plain version and
+    against `_bound_levels` + the K2 + K3 loop it replaced: in core, as a
+    streamed bucket (root_level 2, codes inside one level-2 cell) and with
+    pad rows (n_real < n); the public K6 (i32 leaf) against its plain
+    version and the device core's leaf.  Tolerance 0.  CUDA-event medians
+    of the stage alone, the public K6, the replaced loop from b and
+    `_bound_levels`."""
     import torch
 
     from point_cloud_viewer_tpu_torch.ops import leaf_levels_cuda as K6
@@ -899,29 +1016,47 @@ def phase_leaf_levels(record: dict) -> int:
     )
 
     dev = torch.device(DEVICE)
-    K6.leaf_levels.launches = 0
-    launches = 0
     for n in SIZES:
         tag = f"n={n}"
         codes = torch.sort(torch.from_numpy(
             synthetic_codes(n, seed=n).view(np.int64)).to(dev)).values
-        before = K6.leaf_levels.launches
+        padded = codes.clone()
+        padded[n - 1001:].copy_(codes[:1001].flip(0))  # 1001 pad rows
+        cases = {"in core": (codes, 0, n),
+                 "bucket, root 2": (bucket_codes(codes, 2), 2, n),
+                 "pad rows": (padded, 0, n - 1001)}
+        for name, (c, root, n_real) in cases.items():
+            got = K6.leaf_stage(c, DEPTH, DEPTH, LEAF_MAX_POINTS, root, n_real)
+            loop = K6.leaf_stage_loop(c, DEPTH, DEPTH, LEAF_MAX_POINTS, root,
+                                      n_real)
+            errs = [max_abs_err(g, w) for g, w in zip(got, loop)]
+            if name == "in core":
+                plain = K6.leaf_stage_plain(c, DEPTH, DEPTH, LEAF_MAX_POINTS)
+                errs += [max_abs_err(g, w) for g, w in zip(got, plain)]
+                del plain
+            log(f"K6 leaf_stage {tag} {name}: max_abs_err (b, leaf) vs the "
+                f"K2 + K3 loop{' and plain' if name == 'in core' else ''} "
+                f"{errs}; leaf levels "
+                f"{torch.bincount(got[1], minlength=DEPTH + 1).tolist()}")
+            record["K6"]["err"] = max(record["K6"]["err"], *errs)
+            if any(errs):
+                raise AssertionError(f"K6 leaf_stage {tag} {name}: {errs}")
+            del got, loop
+        del cases, padded
+
         got = K6.leaf_levels(codes, DEPTH, DEPTH, LEAF_MAX_POINTS)
-        torch.cuda.synchronize()
-        launches += K6.leaf_levels.launches - before
         plain = K6.leaf_levels_plain(codes, DEPTH, DEPTH, LEAF_MAX_POINTS)
         core = build_tree_device_codes_grouped(
             codes, n, DEPTH, DEPTH, LEAF_MAX_POINTS,
             extras_cap=max(512, n >> 6)).leaf
         err_plain, err_core = max_abs_err(got, plain), max_abs_err(got, core)
-        log(f"K6 leaf_levels {tag}: max_abs_err vs plain {err_plain}, vs "
-            f"core leaf {err_core}; leaf levels "
-            f"{torch.bincount(got, minlength=DEPTH + 1).tolist()}")
+        log(f"K6 leaf_levels {tag} (public, i32): max_abs_err vs plain "
+            f"{err_plain}, vs core leaf {err_core}")
         record["K6"]["err"] = max(record["K6"]["err"], err_plain, err_core)
         if err_plain or err_core:
             raise AssertionError(f"K6 {tag}: err vs plain {err_plain}, vs "
                                  f"core {err_core}")
-        del plain, core
+        del got, plain, core
 
         b = _bound_levels(codes, DEPTH)
         fresh = (torch.full((n,), DEPTH, dtype=torch.uint8, device=dev),
@@ -932,24 +1067,31 @@ def phase_leaf_levels(record: dict) -> int:
                 LC.leaf_update_pass(b, LC.seg_start_pass(b, level), leaf,
                                     found, level, LEAF_MAX_POINTS)
 
+        stage = lambda: K6.leaf_stage(codes, DEPTH, DEPTH, LEAF_MAX_POINTS)
         times = {
-            "K6": cuda_ms(lambda: K6.leaf_levels(codes, DEPTH, DEPTH,
-                                                 LEAF_MAX_POINTS)),
-            "plain": cuda_ms(lambda: K6.leaf_levels_plain(
-                codes, DEPTH, DEPTH, LEAF_MAX_POINTS), reps=3),
-            "21 x (K2 + K3)": cuda_ms(
+            "stage": cuda_ms(stage),
+            "stage, 20 back to back": train_ms(stage),
+            "public K6 (i32)": cuda_ms(lambda: K6.leaf_levels(
+                codes, DEPTH, DEPTH, LEAF_MAX_POINTS)),
+            "21 x (K2 + K3) from b": cuda_ms(
                 leaf_loop, lambda: tuple(t.clone() for t in fresh)),
             "_bound_levels": cuda_ms(lambda: _bound_levels(codes, DEPTH)),
         }
-        log(f"K6 {tag} (CUDA-event medians, ms; K6 and plain include "
-            f"_bound_levels, the loop starts from b): "
-            + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
-        record["K6"]["times"][n] = (times["K6"], times["plain"])
-        record["K6"]["loop"][n] = (times["21 x (K2 + K3)"],
-                                   times["_bound_levels"])
-        del codes, got, b, fresh
+        if n == SIZES[0]:
+            times["stage plain"] = cuda_ms(lambda: K6.leaf_stage_plain(
+                codes, DEPTH, DEPTH, LEAF_MAX_POINTS), reps=3)
+            record["K6"]["times"][n] = (times["stage"], times["stage plain"])
+        split = kernel_split(stage)
+        log(f"K6 {tag} leaf stage by kernel (torch.profiler, device ms a "
+            "call): " + (", ".join(f"{k} {v:.4f}" for k, v in split.items())
+                         or "not measured (no device time)"))
+        log(f"K6 {tag} (CUDA-event medians, ms; the stage and the public K6 "
+            "start from the codes, the loop from b): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+            + f"; replaced (_bound_levels + loop) / stage "
+            f"{(times['_bound_levels'] + times['21 x (K2 + K3) from b']) / times['stage']:.2f}")
+        del codes, b, fresh
         torch.cuda.empty_cache()
-    return launches
 
 
 def streaming_cli(ply: str, out_dir: str, spill: str, wrappers: dict):
@@ -986,10 +1128,9 @@ def streaming_cli(ply: str, out_dir: str, spill: str, wrappers: dict):
         f"card time (upload + derivation) = "
         f"{wait / busy if busy else 0.0:.4f} of it not hidden, against "
         f"{sum(host.values()):.3f} s of host bucket phases")
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing or buckets <= 0:
-        raise AssertionError(f"streaming path: kernels not launched "
-                             f"{missing}, {buckets} buckets")
+    if buckets <= 0:
+        raise AssertionError("streaming path: no bucket derived on the card")
+    check_build_launches("streaming", launches)
     return wall, phases, launches
 
 
@@ -1190,19 +1331,19 @@ def main() -> int:
         "K5": ("cull_lod", CC.cull_lod,
                "point_cloud_viewer_tpu_torch/csrc/cull.cu",
                "point_cloud_viewer_tpu/ops/culling_pallas.py:81"),
-        "K6": ("leaf_levels", K6.leaf_levels,
+        "K6": ("leaf_stage", K6.leaf_stage,
                "point_cloud_viewer_tpu_torch/csrc/leaf_levels.cu",
                "point_cloud_viewer_tpu/ops/tree_build_pallas.py:150"),
         "K7": ("stream_probe", K7.stream_probe,
                "point_cloud_viewer_tpu_torch/csrc/stream_probe.cu",
                "bench.py:199"),
     }
-    record = {k: {"err": 0, "times": {}, "loop": {}, "lib": {}}
+    record = {k: {"err": 0, "times": {}, "lib": {}}
               for k in kernels}
     phase_kernels(record)
     phase_core()
-    build = {k: v[1] for k, v in kernels.items() if k in ("K1", "K2", "K3",
-                                                          "K4")}
+    build = {k: v[1] for k, v in kernels.items()
+             if k in BUILD_PATH + OFF_PATH}
     tmp = tempfile.mkdtemp(prefix="pcv_chip_smoke_")
     try:
         launches, octree_dir, ply, incore_wall = phase_e2e(build, tmp)
@@ -1210,7 +1351,7 @@ def main() -> int:
         table = phase_cull_kernel(record)
         phase_cull_session(octree_dir, table)
         launches["K5"] = phase_view(octree_dir, tmp)
-        launches["K6"] = phase_leaf_levels(record)
+        phase_leaf_levels(record)
         streamed, buckets = phase_streaming(build, tmp, ply, octree_dir,
                                             incore_wall)
         log(f"launches on the in-core path (phase 5) {json.dumps(incore)}; "
@@ -1224,8 +1365,9 @@ def main() -> int:
     # Bytes a launch moves at the timed shape (n = SIZES[0] for K1-K4 and
     # K6): K1 i32 in + out; K2 u8 b in, i32 seg_start out; K3 b, seg_start,
     # leaf and found in, leaf and found out; K4 b and cur in, cur out; K6
-    # i64 codes in, i32 leaf out.  K5 and K7 were counted in their phases.
-    per_elem = {"K1": 8, "K2": 5, "K3": 9, "K4": 3, "K6": 12}
+    # (the leaf stage) i64 codes in, u8 b and u8 leaf out.  K5 and K7 were
+    # counted in their phases.
+    per_elem = {"K1": 8, "K2": 5, "K3": 9, "K4": 3, "K6": 10}
     for k, rec in record.items():
         if k in per_elem:
             rec["bytes"] = per_elem[k] * SIZES[0]

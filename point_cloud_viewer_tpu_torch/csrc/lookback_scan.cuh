@@ -1,7 +1,7 @@
 // Single-pass chained scan with decoupled look-back (Merrill and Garland,
 // "Single-pass Parallel Prefix Scan with Decoupled Look-back", NVIDIA 2016):
-// the sweep of K1 (scan.cu) and K2 (level.cu, seg_start).  K3, K4 and K6
-// still run the three-launch skeleton of scan_skeleton.cuh, whose operators
+// the sweep of K1 (scan.cu) and K2 (level.cu, seg_start).  K3 and K4 still
+// run the three-launch skeleton of scan_skeleton.cuh, whose operators
 // (MaxOp, MinOp, SumOp) this header shares.
 //
 // A sweep is one launch after one cudaMemsetAsync of its scratch:

@@ -1,8 +1,7 @@
 // Reduce-then-scan skeleton of the port's carried sweeps K3 leaf_update and
-// K4 promote (level.cu); K6 (leaf_levels.cu) uses its block scans and the
-// in-place carry scan.  K1 (scan.cu) and K2 (level.cu seg_start) run the
+// K4 promote (level.cu).  K1 (scan.cu) and K2 (level.cu seg_start) run the
 // one-launch decoupled look-back scan of lookback_scan.cuh, which shares
-// the operators below.
+// the operators below, as does K6's carry scan (leaf_levels.cu).
 //
 // The Pallas kernels these replace (point_cloud_viewer_tpu/ops/scan_pallas.py,
 // ops/level_pallas.py) keep a running carry in SMEM across a grid that the

@@ -113,6 +113,8 @@ def build_octree(
     resolution: float,
     data: Union[PointsBatch, Iterable[PointsBatch]],
     attributes: Optional[Sequence[str]] = None,
+    bounding_box: Optional[Aabb] = None,
+    progress: bool = False,
     use_device: bool = True,
     mesh=None,
     phase_times: Optional[dict] = None,
@@ -121,6 +123,11 @@ def build_octree(
     """Build a reference-format octree directory from points.
 
     `attributes`: which batch attributes to store (default: all present).
+    `bounding_box`: the box the root cube bounds (default: the points'
+    own); it is the box meta.pb records, and the depth cap and the Morton
+    quantisation follow its cube.
+    `progress`: print a `build_octree: <phase>: X.XXXs` line on stderr
+    after each phase.
     `use_device`: run the tree derivation (sort + leaf assignment + LOD
     promotion) on `device` ("cuda", or "cpu" for the kernels' plain
     PyTorch versions); the only path ported so far (False raises).
@@ -139,6 +146,12 @@ def build_octree(
         )
     dev = resolve_device(device)
 
+    def phase(label):
+        return timed_phase(
+            phase_times, label,
+            echo=f"build_octree: {label}" if progress else None,
+        )
+
     attempt_increasing_rlimit_to_max()
     batch = _materialize(data)
     if attributes is not None:
@@ -150,7 +163,8 @@ def build_octree(
             attributes={a: batch.attributes[a] for a in attributes},
         )
     n = len(batch)
-    bounding_box = Aabb.bounding_points(batch.position)
+    if bounding_box is None:
+        bounding_box = Aabb.bounding_points(batch.position)
     root_cube = Cube.bounding(bounding_box)
 
     depth_cap = 0
@@ -174,11 +188,11 @@ def build_octree(
         return BuildResult(output_directory, root_cube, resolution, bounding_box, [], 0)
 
     # --- 1. Morton encode + the device derivation -----------------------
-    with timed_phase(phase_times, "quantize+morton"):
+    with phase("quantize+morton"):
         codes_unsorted, _ = morton.quantize_and_encode(
             batch.position, root_cube.min, root_cube.edge_length, depth_cap
         )
-    with timed_phase(phase_times, "device core"):
+    with phase("device core"):
         # 8 B/pt up (int64 codes), ~4 B/pt down via the GROUPED exchange
         # (order2 sorted by (final level, code) + per-level counts +
         # 1-point-leaf extras); the classic idx/final/leaf arrays stay on
@@ -186,7 +200,7 @@ def build_octree(
         got = fetch_grouped(tree_codes_grouped_on_device(
             codes_unsorted, depth_cap, depth_cap, device=dev
         ))
-    with timed_phase(phase_times, "group levels"):
+    with phase("group levels"):
         if got.overflow:
             order = got.idx
             final_nodes = _group_device_levels(
@@ -200,7 +214,7 @@ def build_octree(
             )
 
     # --- 2. encode + write -------------------------------------------------
-    with timed_phase(phase_times, "encode+write"):
+    with phase("encode+write"):
         nodes = _write_levels(
             output_directory, final_nodes, batch, order, root_cube, resolution
         )

@@ -61,9 +61,10 @@ _SIGNATURES = {
     "pcv_promote": (
         [c_void_p, c_void_p, c_longlong, c_int, c_void_p, c_void_p], c_int,
     ),
-    "pcv_leaf_levels": (
-        [c_void_p, c_void_p, c_longlong, c_int, c_int, c_int, c_void_p,
-         c_void_p],
+    "pcv_leaf_tile_rows": ([], c_int),
+    "pcv_leaf_stage": (
+        [c_void_p, c_void_p, c_void_p, c_int, c_longlong, c_longlong, c_int,
+         c_int, c_int, c_int, c_int, c_void_p, c_void_p],
         c_int,
     ),
     "pcv_stream_probe": (

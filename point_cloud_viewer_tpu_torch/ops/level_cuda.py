@@ -1,8 +1,11 @@
 """K2-K4: the fused per-level sweeps of the tree derivation.
 
 Port of point_cloud_viewer_tpu/ops/level_pallas.py.  Each level of the
-leaf and promotion loops (ops/tree_build.py) is one or two sweeps over the
-u8 boundary-level array `b` (b[i] <= level <=> a segment starts at i):
+leaf and promotion loops is one or two sweeps over the u8 boundary-level
+array `b` (b[i] <= level <=> a segment starts at i).  On the card the
+build runs K4 once a level (ops/tree_build.py); its leaf loop of K2 + K3
+(ops/leaf_levels_cuda.leaf_stage_loop) is the CPU route and, on the card,
+the yardstick of the K6 leaf stage that replaced it:
 
 * seg_start_pass   (K2, fwd): b -> seg_start i32, the latest start <= i.
 * leaf_update_pass (K3, rev): seg_end = first start > i (else n);

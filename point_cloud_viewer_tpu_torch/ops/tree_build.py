@@ -15,9 +15,11 @@ rules are the JAX package's, unchanged:
 Codes are non-negative int64 tensors (one 63-bit key per point) in place of
 the JAX (hi, lo) uint32 pairs.  A stable `torch.sort` on that key gives the
 order of JAX's unstable 3-key sort over (hi, lo, idx) (tree_build.py:460,
-:608), because idx is unique.  The per-level sweeps are the fused kernels
-K2-K4 (ops/level_cuda) and the extras rank runs through K1
-(ops/scan_cuda); CPU tensors take their plain PyTorch versions.
+:608), because idx is unique.  On the card the leaf stage is one run of
+K6 (ops/leaf_levels_cuda.leaf_stage: sorted codes -> boundary and leaf
+levels), the promotion sweeps are K4 (ops/level_cuda) and the extras rank
+runs through K1 (ops/scan_cuda); CPU tensors take their plain PyTorch
+versions, the leaf stage its per-level K2 + K3 loop.
 
 Between the upload and the fetch nothing reads the card from the host (no
 `.item()`, no `bincount`, no test for an empty level), so a caller can
@@ -33,54 +35,14 @@ import torch
 
 from ..core.constants import MAX_POINTS_PER_NODE
 from . import morton
-from .level_cuda import leaf_update_pass, promote_pass, seg_start_pass
+# _bound_levels lives beside the kernel that replaced it on the card; it is
+# re-exported here, where the JAX package has it.
+from .leaf_levels_cuda import _bound_levels, leaf_stage  # noqa: F401
+from .level_cuda import promote_pass
 from .scan_cuda import scan_1d
 
 # Segment positions and permutations are int32, as in the JAX package.
 _MAX_N = 2**31 - 1
-
-
-def _high_bit(x: torch.Tensor) -> torch.Tensor:
-    """Index of the highest set bit of each x in [1, 2^63) (0 for x == 0).
-
-    torch has no clz; a float log2 rounds above 2^53 and would give the
-    wrong bit, so this is a 6-step binary search on comparisons."""
-    hsb = torch.zeros_like(x)
-    v = x
-    for s in (32, 16, 8, 4, 2, 1):
-        m = v >= (1 << s)
-        hsb += m.to(x.dtype) * s
-        v = torch.where(m, v >> s, v)
-    return hsb
-
-
-def _bound_levels(codes: torch.Tensor, depth: int,
-                  n_real: Optional[int] = None) -> torch.Tensor:
-    """tree_build.py:163-178.  Per-point u8 boundary level over SORTED
-    codes: the shallowest level whose prefix changes between codes i-1 and
-    i.  Row 0 XORs with ~c[0]; the result is negative, so its high bit
-    counts as 63 and its boundary level as 0 (a boundary at every level).
-    Codes equal to their predecessor get depth+1 (never a boundary).
-
-    Rows >= n_real are pad rows (the JAX package's 0xFFFFFFFF sentinels,
-    whose int64 join is -1 and would sort first): their values are never
-    read.  The first pad row gets boundary 0, the rest depth+1 -- what the
-    JAX sentinel run yields (tree_build.py:476-489)."""
-    n = codes.shape[0]
-    if n == 0:
-        return torch.empty(0, dtype=torch.uint8, device=codes.device)
-    x = codes ^ torch.cat([~codes[:1], codes[:-1]])
-    hsb = torch.where(x < 0, 63, _high_bit(x.clamp_min(0)))
-    b = torch.where(
-        x == 0, depth + 1, (depth - torch.div(hsb, 3, rounding_mode="floor"))
-        .clamp_min(0),
-    ).to(torch.uint8)
-    if n_real is not None and n_real < n:
-        # fill_ on views: a scalar assignment would copy a host scalar up
-        # and synchronise.
-        b[n_real:n_real + 1].fill_(0)
-        b[n_real + 1:].fill_(depth + 1)
-    return b
 
 
 def _assign_and_promote(codes: torch.Tensor, depth: int, max_split_level: int,
@@ -88,25 +50,19 @@ def _assign_and_promote(codes: torch.Tensor, depth: int, max_split_level: int,
                         stop_level: int = 0, n_real: Optional[int] = None):
     """Sorted int64 codes -> (leaf_level, final_level) u8 per point.
 
-    The fused formulation of tree_build.py:188-246: per leaf level one K2 +
-    one K3 sweep over the u8 boundary array; per non-empty promotion level
-    one K4 sweep.  root_level/stop_level give the subtree semantics of the
-    native tree_levels kernel: level-root segments split unconditionally
-    (leaves live at levels root+1..max_split) and promotion stops at
-    stop_level."""
+    The fused formulation of tree_build.py:188-246: the leaf stage
+    (boundary levels b and leaf levels, one K6 run on the card; on the CPU
+    `_bound_levels` and per leaf level a K2 + K3 sweep), then per promotion
+    level one K4 sweep over b.  root_level/stop_level give the subtree
+    semantics of the native tree_levels kernel: level-root segments split
+    unconditionally (leaves live at levels root+1..max_split) and
+    promotion stops at stop_level."""
     if not root_level <= stop_level <= max_split_level:
         raise ValueError("need root_level <= stop_level <= max_split_level")
     if root_level >= max_split_level:
         raise ValueError("need root_level < max_split_level")
-    b = _bound_levels(codes, depth, n_real)
-    n = b.shape[0]
-    leaf = torch.full((n,), max_split_level, dtype=torch.uint8,
-                      device=codes.device)
-    found = torch.zeros(n, dtype=torch.uint8, device=codes.device)
-    for level in range(root_level + 1, max_split_level + 1):
-        seg_start = seg_start_pass(b, level)
-        leaf_update_pass(b, seg_start, leaf, found, level,
-                         max_points_per_node)
+    b, leaf = leaf_stage(codes, depth, max_split_level, max_points_per_node,
+                         root_level, n_real)
     cur = leaf.clone()
     for level in range(max_split_level, stop_level, -1):
         # Every level is swept: K4 on a level with no resident point changes

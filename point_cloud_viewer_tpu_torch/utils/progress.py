@@ -1,22 +1,41 @@
-"""Timing breadcrumbs: `timed_phase` (copy of
-point_cloud_viewer_tpu/utils/progress.py:63-81, without its `echo`
-option, which no caller of the port passes)."""
+"""Timing breadcrumbs: `timed` and `timed_phase` (copy of
+point_cloud_viewer_tpu/utils/progress.py:51-81; `build_octree(progress=
+True)` passes `echo`)."""
 
 from __future__ import annotations
 
 import contextlib
+import sys
 import time
 from typing import Iterator, Optional
 
 
 @contextlib.contextmanager
-def timed_phase(phase_times: Optional[dict], key: str) -> Iterator[None]:
-    """Accumulate wall time into phase_times[key] (no-op dict when None).
-    Records on exceptions too (try/finally), so a failed phase still shows
-    where the time went."""
-    t0 = time.perf_counter()
+def timed(label: str, stream=None) -> Iterator[None]:
+    """Timing breadcrumb: prints '<label>: X.XXXs' on exit."""
+    stream = stream or sys.stderr
+    start = time.perf_counter()
     try:
         yield
+    finally:
+        stream.write(f"{label}: {time.perf_counter() - start:.3f}s\n")
+        stream.flush()
+
+
+@contextlib.contextmanager
+def timed_phase(phase_times: Optional[dict], key: str,
+                echo: Optional[str] = None) -> Iterator[None]:
+    """Accumulate wall time into phase_times[key] (no-op dict when None);
+    with `echo`, also print a `timed`-style breadcrumb.  Records on
+    exceptions too (try/finally), so a failed phase still shows where the
+    time went."""
+    t0 = time.perf_counter()
+    try:
+        if echo is not None:
+            with timed(echo):
+                yield
+        else:
+            yield
     finally:
         if phase_times is not None:
             phase_times[key] = (

@@ -19,6 +19,7 @@ from point_cloud_viewer_tpu_torch.core.points_batch import PointsBatch
 from point_cloud_viewer_tpu_torch.octree.builder import build_octree
 from point_cloud_viewer_tpu_torch.ops import cull_cuda as CC
 from point_cloud_viewer_tpu_torch.ops import hbm_probe as K7
+from point_cloud_viewer_tpu_torch.ops import leaf_levels_cuda as K6
 from point_cloud_viewer_tpu_torch.ops import culling
 from point_cloud_viewer_tpu_torch.ops import level_cuda as LC
 from point_cloud_viewer_tpu_torch.ops import morton
@@ -27,8 +28,10 @@ from point_cloud_viewer_tpu_torch.ops import tree_build as tb
 
 pytestmark = pytest.mark.cuda
 
-_WRAPPERS = (SC.scan_1d, LC.seg_start_pass, LC.leaf_update_pass,
-             LC.promote_pass)
+# The build path's kernels (K6: the leaf stage), and K2 and K3, whose
+# per-level loop the leaf stage replaced there.
+_WRAPPERS = (SC.scan_1d, LC.promote_pass, K6.leaf_stage)
+_OFF_PATH = (LC.seg_start_pass, LC.leaf_update_pass)
 
 
 @pytest.fixture
@@ -148,12 +151,14 @@ def test_build_on_card_matches_cpu(cuda, tmp_path):
                                  6.0 + rng.normal(0, 0.01, (n, 3))]),
         attributes={"intensity": rng.random(2 * n).astype(np.float32)},
     )
-    before = [w.launches for w in _WRAPPERS]
+    before = [w.launches for w in _WRAPPERS + _OFF_PATH]
     card, cpu = tmp_path / "card", tmp_path / "cpu"
     build_octree(str(card), 0.001, batch, use_device=True, device=cuda)
-    after = [w.launches for w in _WRAPPERS]
+    after = [w.launches for w in _WRAPPERS + _OFF_PATH]
     build_octree(str(cpu), 0.001, batch, use_device=True, device="cpu")
-    assert all(a > b for a, b in zip(after, before))
+    k = len(_WRAPPERS)
+    assert all(a > b for a, b in zip(after[:k], before[:k]))
+    assert after[k:] == before[k:]
     names = sorted(p.name for p in cpu.iterdir())
     assert names == sorted(p.name for p in card.iterdir())
     for name in names:
@@ -276,29 +281,76 @@ def _k6_codes(n, seed, kind="mixed"):
 
 @pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 8191, 8193, 1_000_003])
 def test_leaf_levels_kernel_matches_plain(cuda, n):
-    from point_cloud_viewer_tpu_torch.ops import leaf_levels_cuda as K6
-
     codes = _k6_codes(n, n).to(cuda)
     before = K6.leaf_levels.launches
+    stage_before = K6.leaf_stage.launches
     for t in (1, 100, 5_000):
         got = K6.leaf_levels(codes, 21, 21, t)
         assert torch.equal(got, K6.leaf_levels_plain(codes, 21, 21, t))
         core = tb.build_tree_device_codes_grouped(codes, n, 21, 21, t)
         assert torch.equal(got, core.leaf.to(torch.int32))
+    # Each entry counts its own launches: three public K6 calls, and one
+    # leaf stage in each of the three derivations.
     assert K6.leaf_levels.launches == before + 3
+    assert K6.leaf_stage.launches == stage_before + 3
 
 
 @pytest.mark.parametrize("n,t", [(5000, 0), (5000, 4999), (5000, 5000),
                                  (9000, 2**40)])
 def test_leaf_levels_kernel_one_run_and_threshold_extremes(cuda, n, t):
-    from point_cloud_viewer_tpu_torch.ops import leaf_levels_cuda as K6
-
     for kind in ("dups", "mixed"):
         codes = _k6_codes(n, 7, kind).to(cuda)
         for depth, max_split in ((21, 21), (9, 13), (21, 5)):
             got = K6.leaf_levels(codes, depth, max_split, t)
             want = K6.leaf_levels_plain(codes, depth, max_split, t)
             assert torch.equal(got, want), (kind, depth, max_split)
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 8191, 8192, 8193,
+                               1_000_003])
+@pytest.mark.parametrize("root", [0, 2])
+def test_leaf_stage_matches_loop(cuda, n, root):
+    """The core's leaf stage (one K6 run) against `_bound_levels` + the
+    K2 + K3 loop on the card and on the CPU, (b, leaf) bit for bit: pad
+    rows (n_real < n), the start rule past `depth`, and a code view whose
+    base is not 16-B aligned (the kernel's scalar loads)."""
+    host = _k6_codes(n + 1, n + root)
+    for depth, max_split in ((21, 21), (9, 13), (21, 5)):
+        for n_real in sorted({n, max(n - 37, 0), n - 1}):
+            # Sorted real rows, then pad rows of arbitrary codes.
+            codes = host[1:].clone()
+            codes[n_real:] = host[1:][n_real:].flip(0)
+            for label, on_card in (("aligned", codes.to(cuda)),
+                                   ("offset 1", host.to(cuda)[1:])):
+                if label == "offset 1":
+                    on_card.copy_(codes)
+                before = K6.leaf_stage.launches
+                got = K6.leaf_stage(on_card, depth, max_split, 100, root,
+                                    n_real)
+                assert K6.leaf_stage.launches == before + 1
+                loop = K6.leaf_stage_loop(on_card, depth, max_split, 100,
+                                          root, n_real)
+                plain = K6.leaf_stage(codes, depth, max_split, 100, root,
+                                      n_real)
+                for g, w, p, name in zip(got, loop, plain, ("b", "leaf")):
+                    assert g.dtype == torch.uint8, name
+                    assert torch.equal(g, w), (label, depth, max_split,
+                                               n_real, name)
+                    assert torch.equal(g.cpu(), p), (label, name)
+
+
+def test_leaf_stage_threshold_extremes_and_empty(cuda):
+    for kind in ("dups", "mixed"):
+        codes = _k6_codes(9000, 3, kind).to(cuda)
+        for t in (0, 1, 8999, 9000, 2**40):
+            for depth, max_split in ((21, 21), (9, 13), (21, 5)):
+                got = K6.leaf_stage(codes, depth, max_split, t)
+                want = K6.leaf_stage_plain(codes.cpu(), depth, max_split, t)
+                assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    empty = torch.zeros(0, dtype=torch.int64, device=cuda)
+    before = K6.leaf_stage.launches
+    b, leaf = K6.leaf_stage(empty, 21, 21, 100)
+    assert b.shape == leaf.shape == (0,) and K6.leaf_stage.launches == before
 
 
 def test_derivation_makes_no_host_sync(cuda):
@@ -364,15 +416,17 @@ def test_streaming_build_on_card_matches_cpu(cuda, tmp_path, monkeypatch,
 
         monkeypatch.setattr(tb, "tree_codes_grouped_on_device", capped)
     batch = _streaming_batch(seed=3)
-    before = [w.launches for w in _WRAPPERS]
+    before = [w.launches for w in _WRAPPERS + _OFF_PATH]
     phases = {}
     card, cpu = tmp_path / "card", tmp_path / "cpu"
     build_octree_streaming(str(card), 0.001, batch, bucket_levels=1,
                            device=cuda, phase_times=phases)
-    after = [w.launches for w in _WRAPPERS]
+    after = [w.launches for w in _WRAPPERS + _OFF_PATH]
     build_octree_streaming(str(cpu), 0.001, batch, bucket_levels=1,
                            device="cpu")
-    assert all(a > b for a, b in zip(after, before))
+    k = len(_WRAPPERS)
+    assert all(a > b for a, b in zip(after[:k], before[:k]))
+    assert after[k:] == before[k:]
     up, down = phases["bucket_upload_bytes"], phases["bucket_fetch_bytes"]
     # 8 B/pt up; down ~4 B/pt, or 6 B/pt on the classic route (overflow).
     assert (down > 0.75 * up) == (extras_cap == 1)

@@ -492,3 +492,33 @@ def test_camera_matrices_match_jax(width, height):
         _same(mine.world_to_gl(), theirs.world_to_gl())
         _same(mine.position, theirs.position)
         _same(mine.projection.matrix, theirs.projection.matrix)
+
+
+# --- utils.progress ----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("echo", [None, "build_octree: encode+write"])
+def test_timed_phase_matches_jax(echo, capsys):
+    """The copy records the same keys and prints the same breadcrumb (its
+    seconds masked), also when the phase raises."""
+    import re
+
+    from point_cloud_viewer_tpu.utils import progress as JP
+    from point_cloud_viewer_tpu_torch.utils import progress as PP
+
+    said = []
+    for mod in (PP, JP):
+        times = {"other": 1.0}
+        with mod.timed_phase(times, "k", echo=echo):
+            pass
+        with pytest.raises(KeyError):
+            with mod.timed_phase(times, "k", echo=echo):
+                raise KeyError("boom")
+        with mod.timed_phase(None, "unused", echo=echo):
+            pass
+        assert sorted(times) == ["k", "other"] and times["k"] >= 0.0
+        out = capsys.readouterr()
+        assert out.out == ""
+        said.append(re.sub(r"\d+\.\d{3}s", "X.XXXs", out.err))
+    assert said[0] == said[1]
+    assert said[0] == ("" if echo is None else f"{echo}: X.XXXs\n" * 3)

@@ -112,9 +112,10 @@ def test_threshold_extremes(t, expect):
 
 def test_cpu_call_counts_no_launch_and_rejects_bad_input():
     codes = _port(_sorted_codes(500, 5, "random"))
-    before = K6.leaf_levels.launches
+    before = K6.leaf_levels.launches, K6.leaf_stage.launches
     K6.leaf_levels(codes, 5, 5, 10)
-    assert K6.leaf_levels.launches == before
+    K6.leaf_stage(codes, 5, 5, 10)
+    assert (K6.leaf_levels.launches, K6.leaf_stage.launches) == before
     with pytest.raises(ValueError):
         K6.leaf_levels(codes.to(torch.int32), 5, 5, 10)
     with pytest.raises(ValueError):

@@ -13,6 +13,7 @@ from point_cloud_viewer_tpu.octree.builder import build_octree as jax_build
 from point_cloud_viewer_tpu.octree.octree import Octree
 from point_cloud_viewer_tpu_torch.cli.build_octree import main as cli_main
 from point_cloud_viewer_tpu_torch.octree.builder import build_octree
+from point_cloud_viewer_tpu_torch.ops import leaf_levels_cuda as K6
 from point_cloud_viewer_tpu_torch.ops import level_cuda as LC
 from point_cloud_viewer_tpu_torch.ops import scan_cuda as SC
 from tests.conftest import assert_dirs_byte_equal
@@ -132,7 +133,7 @@ def test_build_leaves_launch_counters_at_zero_on_cpu(tmp_path):
     rng = np.random.default_rng(3)
     batch = PointsBatch(position=rng.random((5_000, 3)), attributes={})
     wrappers = (SC.scan_1d, LC.seg_start_pass, LC.leaf_update_pass,
-                LC.promote_pass)
+                LC.promote_pass, K6.leaf_stage, K6.leaf_levels)
     before = [w.launches for w in wrappers]
     build_octree(str(tmp_path / "o"), 0.001, batch, use_device=True,
                  device="cpu")
@@ -204,3 +205,54 @@ def test_cli_unported_routes_exit(tmp_path, flags, capsys):
     assert exc.value.code != 0
     assert "not yet ported" in capsys.readouterr().err
 
+
+@pytest.mark.parametrize("positional", [False, True])
+def test_build_with_bounding_box_matches_jax(tmp_path, positional):
+    """A box larger than the points roots the octree at its cube and goes
+    into meta.pb, as in the JAX package; `bounding_box` sits after
+    `attributes` in both signatures."""
+    from point_cloud_viewer_tpu.math.geometry import Aabb as JaxAabb
+    from point_cloud_viewer_tpu_torch.math.geometry import Aabb
+
+    rng = np.random.default_rng(17)
+    batch = PointsBatch(
+        position=np.concatenate([rng.random((40_000, 3)) * 5.0 + 2.0,
+                                 3.0 + rng.normal(0.0, 0.02, (20_000, 3))]),
+        attributes={"intensity": rng.random(60_000).astype(np.float32)},
+    )
+    lo, hi = [-10.0, -4.0, 0.5], [30.0, 12.0, 9.0]
+    port, ref = str(tmp_path / "port"), str(tmp_path / "jax")
+    if positional:
+        result = build_octree(port, 0.001, batch, None, Aabb(lo, hi),
+                              device="cpu")
+        jax_build(ref, 0.001, batch, None, JaxAabb(lo, hi), False, True)
+    else:
+        result = build_octree(port, 0.001, batch, bounding_box=Aabb(lo, hi),
+                              device="cpu")
+        jax_build(ref, 0.001, batch, bounding_box=JaxAabb(lo, hi),
+                  use_device=True)
+    assert_dirs_byte_equal(ref, port, context="port vs JAX, bounding_box")
+    octree = Octree.from_directory(port)
+    np.testing.assert_array_equal(octree.bounding_box.mins, lo)
+    np.testing.assert_array_equal(octree.bounding_box.maxs, hi)
+    assert result.root_cube.edge_length == 40.0
+    assert result.num_points == len(batch)
+
+
+def test_build_progress_prints_jax_phase_lines(tmp_path, capsys):
+    import re
+
+    rng = np.random.default_rng(4)
+    batch = PointsBatch(position=rng.random((3_000, 3)) * 8.0,
+                        attributes={})
+    said = []
+    for build, kwargs in ((build_octree, {"device": "cpu"}),
+                          (jax_build, {"use_device": True})):
+        build(str(tmp_path / build.__module__), 0.001, batch, progress=True,
+              **kwargs)
+        out = capsys.readouterr()
+        said.append(re.sub(r"\d+\.\d{3}s", "X.XXXs", out.err))
+    assert said[0] == said[1]
+    assert said[0] == "".join(
+        f"build_octree: {p}: X.XXXs\n" for p in
+        ("quantize+morton", "device core", "group levels", "encode+write"))

@@ -263,3 +263,89 @@ def test_async_dispatch_and_fetch_match_jax(monkeypatch):
                                           want[1][:-1])
             np.testing.assert_array_equal(got.extras_idx, want[2][:total])
             np.testing.assert_array_equal(got.extras_level, want[3][:total])
+
+
+def _jax_leaf_stage(codes, n_real, depth, max_split, t, root):
+    """The JAX package's leaf levels on the same rows, with its pad rows
+    as 0xFFFFFFFF sentinels: the looped formulation and the fused one
+    (level_pallas K2 + K3 in interpret mode)."""
+    codes = codes.copy()
+    codes[n_real:] = np.uint64(2**64 - 1)
+    hi, lo = (jnp.asarray(h) for h in jax_morton.split_u64(codes))
+    looped = jax_tb._assign_and_promote_looped(hi, lo, depth, max_split, t,
+                                               root, root)[0]
+    fused = jax_tb._assign_and_promote_fused(hi, lo, depth, max_split, t,
+                                             root, root, interpret=True)[0]
+    return np.asarray(looped), np.asarray(fused)
+
+
+def _above_2_53(n, seed):
+    rng = np.random.default_rng(seed)
+    codes = np.concatenate([
+        rng.integers(0, 2**63, n - 600, dtype=np.uint64),
+        np.uint64(2**63) - rng.integers(1, 2**12, 500, dtype=np.uint64),
+        np.full(100, 2**63 - 1, dtype=np.uint64)])
+    return codes
+
+
+@pytest.mark.parametrize("case,n,depth,max_split,t,root,pad", [
+    ("root 0", 6000, _DEPTH, _DEPTH, 100, 0, 0),
+    ("root 2", 6000, _DEPTH, _DEPTH, 100, 2, 0),
+    ("pad rows", 6000, _DEPTH, _DEPTH, 60, 0, 37),
+    ("pad rows, root 1", 5000, _DEPTH, _DEPTH, 60, 1, 5),
+    ("max_split > depth", 4000, 5, 9, 20, 0, 0),
+    ("max_split > depth, root 3, pad", 4000, 5, 9, 20, 3, 11),
+    ("max_split < depth", 4000, 9, 4, 30, 0, 0),
+    ("codes above 2^53", 6000, 21, 21, 40, 0, 3),
+    ("one point", 1, _DEPTH, _DEPTH, 100, 0, 0),
+    ("one pad row", 1, _DEPTH, _DEPTH, 100, 0, 1),
+])
+def test_leaf_stage_plain_matches_jax(case, n, depth, max_split, t, root,
+                                      pad):
+    """The core's leaf stage on the CPU (its plain version: `_bound_levels`
+    + the K2 + K3 loop) against the JAX package's two formulations, leaf
+    for leaf; b against JAX `_bound_levels` on the real rows."""
+    if depth == 21:
+        codes = np.sort(_above_2_53(n, seed=n))
+    else:
+        codes = np.sort(_hot_codes(n, seed=n + pad, root_level=root,
+                                   depth=depth))
+    n_real = n - pad
+    codes[n_real:] = np.random.default_rng(1).permutation(codes[n_real:])
+    b, leaf = tb.leaf_stage(morton.codes_to_tensor(codes, "cpu"), depth,
+                            max_split, t, root, n_real)
+    assert b.dtype == leaf.dtype == torch.uint8 and leaf.shape == (n,)
+    looped, fused = _jax_leaf_stage(codes, n_real, depth, max_split, t, root)
+    np.testing.assert_array_equal(leaf.numpy(), looped, err_msg=case)
+    np.testing.assert_array_equal(leaf.numpy(), fused, err_msg=case)
+    hi, lo = jax_morton.split_u64(codes[:n_real])
+    if n_real:
+        np.testing.assert_array_equal(
+            b[:n_real].numpy(),
+            np.asarray(jax_tb._bound_levels(jnp.asarray(hi), jnp.asarray(lo),
+                                            depth)), err_msg=case)
+
+
+def test_leaf_stage_empty_and_bad_arguments():
+    empty = torch.zeros(0, dtype=torch.int64)
+    b, leaf = tb.leaf_stage(empty, _DEPTH, _DEPTH, 100)
+    assert b.shape == leaf.shape == (0,)
+    assert b.dtype == leaf.dtype == torch.uint8
+    codes = torch.arange(10, dtype=torch.int64)
+    for args in ((_DEPTH, _DEPTH, 100, _DEPTH), (_DEPTH, 22, 100),
+                 (22, 21, 100), (_DEPTH, _DEPTH, 100, 0, 11)):
+        with pytest.raises(ValueError):
+            tb.leaf_stage(codes, *args)
+    with pytest.raises(ValueError):
+        tb.leaf_stage(codes.to(torch.int32), _DEPTH, _DEPTH, 100)
+
+
+def test_leaf_stage_threshold_past_int32():
+    """A threshold past 2^31 keeps every segment small (an unclamped one
+    would wrap when compared with the int32 counts)."""
+    codes = torch.sort(morton.codes_to_tensor(_hot_codes(3000, seed=9),
+                                              "cpu")).values
+    _, leaf = tb.leaf_stage(codes, _DEPTH, _DEPTH, 2**40)
+    assert (leaf == 1).all()
+    _, leaf = tb.leaf_stage(codes, _DEPTH, _DEPTH, 2**31 - 1)
+    assert (leaf == 1).all()
