@@ -13,22 +13,25 @@ Phases (any failure raises and the exit code is non-zero):
                 beside them, its host library (native/pcv_native.cpp) with
                 g++, so no later wall time holds a build;
   3. kernels -- K1-K4 against their plain PyTorch versions on the card, at
-                16M and 64M elements (ragged n), bit for bit, and at 16M
-                K1 (six modes) and K2 (every level) on views at element
-                offsets 1-3 (unaligned bases) and K2 on an input whose only
-                start is element 0; CUDA-event median times of kernel and
-                plain version, K1 over torch.cumsum;
+                16M and 64M elements (ragged n), bit for bit (K4, the
+                public one-level entry, at every level), and at 16M K1 (six
+                modes) and K2 (every level) on views at element offsets 1-3
+                (unaligned bases) and K2 on an input whose only start is
+                element 0; CUDA-event median times of kernel and plain
+                version, K1 over torch.cumsum;
   4. core    -- the device derivation (build_tree_device_codes_grouped) at
                 16M and 64M synthetic codes on the card against the same
                 call on CPU tensors (the kernels' plain versions), every
                 output bit for bit; where its time goes, step by step
-                (code sort, leaf stage, K4 sweeps, key sort, extras);
+                (code sort, leaf stage, promotion stage, key sort, extras);
   5. e2e     -- a 16M-point PLY through the port's CLI
                 (cli.build_octree, whose defaults derive the tree on the
                 card) byte-compared with the same CLI run with --device
                 cpu; per-phase times and
-                the main path's kernel launch counts (K1, K4 and the K6
-                leaf stage launched; K2 and K3, which it replaced, not);
+                the main path's kernel launch counts (K1 launched, the K6
+                leaf stage and the K4 promotion stage once a derivation;
+                K2, K3 and the one-level K4, whose loops they replaced,
+                not);
   6. cull    -- the viewer's device cull: a. K5 against its plain version
                 on a 1,048,576-node table (partial view, all visible, > 32
                 axes, K = 0, a 64-frame batch), bit for bit, with CUDA-event
@@ -38,15 +41,24 @@ Phases (any failure raises and the exit code is non-zero):
                 (cli.view --frames 60, which culls on the card by default)
                 on phase 5's octree:
                 K5 launches, visible nodes, a decodable final PNG;
-  7. leaf + streaming -- a. K6 at 16M and 64M sorted synthetic codes: the
-                leaf stage (b and leaf from the codes) against its plain
+  7. stages + streaming -- a. K6 at 16M and 64M sorted synthetic codes:
+                the leaf stage (b and leaf from the codes) against its plain
                 version and against _bound_levels + the K2 + K3 loop it
                 replaced, in core, as a streamed bucket (root level 2) and
                 with pad rows; the public K6 against its plain version and
                 the device core's leaf; bit for bit, with CUDA-event
                 medians of the stage alone, the public K6, the 21-level
                 K2 + K3 loop and _bound_levels;
-                b. phase 5's PLY through cli.build_octree --use_device
+                b. K4's promotion stage (every level in one launch) at 16M
+                and 64M against its plain version and the per-level K4 loop
+                it replaced, bit for bit: in core, as a root-level-2 bucket
+                promoted down to stop level 2, with 1001 pad rows, and on an
+                input whose only start is row 0 with every row at the
+                deepest level; CUDA-event medians one call at a time and 20
+                back to back, device time by kernel (torch.profiler, after
+                K6's: profiles taken after phases 4-6 see the card, one
+                taken before them left K6's without device time);
+                c. phase 5's PLY through cli.build_octree --use_device
                 --streaming, byte-compared with phase 5's in-core output, then
                 a 64M-point PLY built in core and streamed on the card and
                 byte-compared; per-bucket phase times, bytes up and down, the
@@ -65,7 +77,9 @@ Phases (any failure raises and the exit code is non-zero):
                 plain and library times beside them.
 
 The CPU route itself is held to the JAX package by tests/test_torch_*.py.
-The line before the last is a JSON object {"kernels": [...]}; the last is
+Every line but the last three starts with the card's name and power limit
+as nvidia-smi prints them; the third line from the end is that label
+alone, the one before the last a JSON object {"kernels": [...]}, the last
 {"ok": true, "device": {...}}.  Imports nothing of JAX and nothing of the
 JAX package.
 """
@@ -90,7 +104,7 @@ SIZES = (16_000_017, 64_000_017)     # phase 3: ragged element counts
 UNALIGNED = (1, 2, 3)                # phase 3: element offsets of views
 CORE_SIZES = (16_000_000, 64_000_000)  # phase 4: synthetic codes
 E2E_POINTS = 16_000_000              # phase 5: the README's in-core cloud
-BIG_POINTS = 64_000_000              # phase 7b: a ~2 GB PLY, streamed
+BIG_POINTS = 64_000_000              # phase 7c: a ~2 GB PLY, streamed
 LEAF_MAX_POINTS = 100_000            # MAX_POINTS_PER_NODE
 CULL_NODES = 1_048_576               # phase 6: bench.py's 1M-node tree
 CULL_BATCH = 64                      # phase 6a: bench.py's batched orbit
@@ -104,14 +118,18 @@ PROBE_ITERS = 20                     # bench.py:144
 # counts two operations), at the 700 W power limit.
 FP32_PEAK_OPS = 67e12
 DEVICE = "cuda"
-# The build's kernels (K6: the leaf stage from the codes), and those its
-# leaf stage replaced, which must not run on it.
+# The build's kernels (K6: the leaf stage from the codes; K4: the promotion
+# stage, every level in one launch), and those whose per-level loops the
+# stages replaced, which must not run on it ("K4 pass": the public
+# one-level K4).
 BUILD_PATH = ("K1", "K4", "K6")
-OFF_PATH = ("K2", "K3")
+OFF_PATH = ("K2", "K3", "K4 pass")
+CARD = ""  # nvidia-smi's name and power limit; main() sets it
 
 
 def log(*args) -> None:
-    print(*args, flush=True)
+    """Print a line that starts with the card's label once it is known."""
+    print(*((f"[{CARD}]",) if CARD else ()), *args, flush=True)
 
 
 class RefuseJaxPackage:
@@ -305,9 +323,7 @@ def phase_kernels(record: dict) -> None:
         busiest = (0, 0)  # (active points, level): K4 is timed there
         for level in range(DEPTH, 0, -1):
             active = int((cur == level).sum())
-            if not active:
-                continue
-            promoted_levels += 1
+            promoted_levels += active > 0
             if active > busiest[0]:
                 busiest = (active, level)
                 snap["cur"] = cur.clone()
@@ -339,8 +355,9 @@ def phase_kernels(record: dict) -> None:
                 f"ms; offset 1, level 8: kernel "
                 f"{cuda_ms(lambda: LC.seg_start_pass(cases['offset 1'], 8)):.4f} ms")
             del cases, start_only
-        log(f"K2/K3 {tag}: {DEPTH} levels bit-equal; K4 {tag}: "
-            f"{promoted_levels} non-empty levels bit-equal; leaf levels "
+        log(f"K2/K3 {tag}: {DEPTH} levels bit-equal; K4 promote_pass {tag}: "
+            f"{DEPTH} levels ({promoted_levels} non-empty) bit-equal; leaf "
+            "levels "
             f"{torch.bincount(leaf, minlength=DEPTH + 1).tolist()}")
 
         lf, fd, ss_p = snap["leaf"]
@@ -361,12 +378,105 @@ def phase_kernels(record: dict) -> None:
         log(f"K2 seg_start_pass {tag}, level 8, 20 calls back to back: "
             f"kernel {train_ms(lambda: LC.seg_start_pass(b, 8)):.4f} ms a "
             "call")
+        again = snap["cur"].clone()
+        log(f"K4 promote_pass {tag}, level {busiest[1]}, 20 calls back to "
+            f"back in place on one array: kernel "
+            f"{train_ms(lambda: LC.promote_pass(b, again, busiest[1])):.4f} "
+            "ms a call")
         for k, (ms, pms) in times.items():
             at = (f"level {busiest[1]}, {busiest[0]} active" if k == "K4"
                   else "level 8")
-            log(f"{k} {tag}: kernel {ms:.4f} ms, plain {pms:.4f} ms ({at})")
-            record[k]["times"][n] = (ms, pms)
-        del b, leaf, found, cur, snap, lf, fd, ss_p
+            name = "K4 promote_pass" if k == "K4" else k
+            log(f"{name} {tag}: kernel {ms:.4f} ms, plain {pms:.4f} ms ({at})")
+            # K4's row is the promotion stage (phase 7b); the one-level
+            # entry's times are printed only.
+            if k != "K4":
+                record[k]["times"][n] = (ms, pms)
+        del b, leaf, found, cur, snap, lf, fd, ss_p, again
+        torch.cuda.empty_cache()
+
+
+def phase_promote(record: dict) -> None:
+    """7b: K4's promotion stage at SIZES (levels DEPTH down to stop + 1)
+    against its plain version and the per-level K4 loop it replaced
+    (promote_stage_loop), bit for bit, from b and leaf levels of the K6
+    leaf stage: in core; the codes moved into one level-2 cell, promoted
+    down to stop level 2 (a streamed bucket); 1001 pad rows; and an input
+    whose only start is row 0 with every row at DEPTH.  CUDA-event medians
+    of the stage one call at a time and 20 back to back, its device time by
+    kernel (torch.profiler), the loop, and the plain stage at SIZES[0]."""
+    import torch
+
+    from point_cloud_viewer_tpu_torch.ops import leaf_levels_cuda as K6
+    from point_cloud_viewer_tpu_torch.ops import level_cuda as LC
+
+    dev = torch.device(DEVICE)
+    for n in SIZES:
+        tag = f"n={n}"
+        codes = torch.sort(torch.from_numpy(
+            synthetic_codes(n, seed=n).view(np.int64)).to(dev)).values
+        padded = codes.clone()
+        padded[n - 1001:].copy_(codes[:1001].flip(0))  # 1001 pad rows
+        start_only = torch.full((n,), DEPTH + 1, dtype=torch.uint8,
+                                device=dev)
+        start_only[:1].fill_(0)
+        setups = {
+            "in core": (*K6.leaf_stage(codes, DEPTH, DEPTH,
+                                       LEAF_MAX_POINTS), 0),
+            "bucket, root 2, stop 2": (*K6.leaf_stage(
+                bucket_codes(codes, 2), DEPTH, DEPTH, LEAF_MAX_POINTS, 2), 2),
+            "pad rows": (*K6.leaf_stage(padded, DEPTH, DEPTH, LEAF_MAX_POINTS,
+                                        0, n - 1001), 0),
+            "start only, all active": (start_only, torch.full(
+                (n,), DEPTH, dtype=torch.uint8, device=dev), 0),
+        }
+        del codes, padded
+        for name, (b, leaf, stop) in setups.items():
+            before = LC.promote_stage.launches
+            got = LC.promote_stage(b, leaf, DEPTH, stop)
+            launched = LC.promote_stage.launches - before
+            loop = LC.promote_stage_loop(b, leaf, DEPTH, stop)
+            plain = LC.promote_stage_plain(b, leaf, DEPTH, stop)
+            errs = [max_abs_err(got, loop), max_abs_err(got, plain)]
+            log(f"K4 promote_stage {tag} {name} (levels {DEPTH}..{stop + 1}):"
+                f" max_abs_err vs the K4 loop and plain {errs}; launches "
+                f"{launched}; rows promoted {int((got != leaf).sum())}; final "
+                f"levels {torch.bincount(got, minlength=DEPTH + 1).tolist()}")
+            record["K4"]["err"] = max(record["K4"]["err"], *errs)
+            if any(errs) or launched != 1:
+                raise AssertionError(f"K4 promote_stage {tag} {name}: errors "
+                                     f"{errs}, launches {launched}")
+            del got, loop, plain
+
+        b, leaf, _ = setups["in core"]
+        b1, leaf1, _ = setups["start only, all active"]
+        stage = lambda: LC.promote_stage(b, leaf, DEPTH, 0)  # noqa: E731
+        chain = lambda: LC.promote_stage(b1, leaf1, DEPTH, 0)  # noqa: E731
+        times = {
+            "stage": cuda_ms(stage),
+            "stage, 20 back to back": train_ms(stage),
+            f"{DEPTH} x K4 (the loop)": cuda_ms(
+                lambda: LC.promote_stage_loop(b, leaf, DEPTH, 0)),
+            "start only: stage": cuda_ms(chain),
+            "start only: stage, 20 back to back": train_ms(chain),
+            f"start only: {DEPTH} x K4": cuda_ms(
+                lambda: LC.promote_stage_loop(b1, leaf1, DEPTH, 0)),
+        }
+        if n == SIZES[0]:
+            times["stage plain"] = cuda_ms(
+                lambda: LC.promote_stage_plain(b, leaf, DEPTH, 0), reps=3)
+            record["K4"]["times"][n] = (times["stage"], times["stage plain"])
+        for label, fn in (("in core", stage), ("start only", chain)):
+            split = kernel_split(fn)
+            log(f"K4 {tag} promotion stage, {label}, by kernel "
+                "(torch.profiler, device ms a call): "
+                + (", ".join(f"{k} {v:.4f}" for k, v in split.items())
+                   or "not measured (no device time)"))
+        log(f"K4 {tag} promotion stage (CUDA-event medians, ms): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+            + "; loop / stage "
+            f"{times[f'{DEPTH} x K4 (the loop)'] / times['stage']:.2f}")
+        del setups, b, leaf, b1, leaf1, start_only
         torch.cuda.empty_cache()
 
 
@@ -386,10 +496,8 @@ def core_split(codes, n: int) -> dict:
         yield "code sort"
         b, leaf = K6.leaf_stage(vals, DEPTH, DEPTH, LEAF_MAX_POINTS)
         yield "leaf stage (K6)"
-        cur = leaf.clone()
-        for level in range(DEPTH, 0, -1):
-            LC.promote_pass(b, cur, level)
-        yield f"{DEPTH} x K4"
+        cur = LC.promote_stage(b, leaf, DEPTH, 0)
+        yield "promotion stage (K4)"
         sorted_key, by_key = torch.sort(cur, stable=True)
         idx[by_key]
         torch.diff(torch.searchsorted(
@@ -540,20 +648,26 @@ def run_cli(args: list, phase_times: dict) -> str:
     return out
 
 
-def check_build_launches(where: str, launches: dict) -> None:
-    """The build path launched each of BUILD_PATH and none of OFF_PATH."""
+def check_build_launches(where: str, launches: dict,
+                         derivations: int) -> None:
+    """The build path launched each of BUILD_PATH and none of OFF_PATH, and
+    each stage (K4, K6) once a derivation."""
     missing = [k for k in BUILD_PATH if launches[k] <= 0]
     stray = [k for k in OFF_PATH if launches[k] != 0]
-    if missing or stray:
+    stages = {k: launches[k] for k in ("K4", "K6")
+              if launches[k] != derivations}
+    if missing or stray or stages:
         raise AssertionError(f"{where}: kernels not launched on the build "
-                             f"path {missing}; launched off it {stray}")
+                             f"path {missing}; launched off it {stray}; "
+                             f"stages launched other than {derivations} "
+                             f"times {stages}")
 
 
 def phase_e2e(wrappers: dict, tmp: str) -> tuple:
     """16M points through the CLI on the card, held byte for byte against
     the CLI with --device cpu; returns the main path's launch counts, the
-    card's octree directory (kept for phases 6 and 7b), the PLY (kept for
-    7b) and the card build's wall seconds."""
+    card's octree directory (kept for phases 6 and 7c), the PLY (kept for
+    7c) and the card build's wall seconds."""
     ply = os.path.join(tmp, "cloud.ply")
     a_dir = os.path.join(tmp, "card")
     b_dir = os.path.join(tmp, "cpu")
@@ -586,7 +700,7 @@ def phase_e2e(wrappers: dict, tmp: str) -> tuple:
     files = dirs_byte_equal(a_dir, b_dir)
     log(f"e2e: card == CPU route, {files} files byte-equal; "
         f"{said.group(2)} nodes hold all {E2E_POINTS} points")
-    check_build_launches("e2e", launches)
+    check_build_launches("e2e", launches, 1)
     shutil.rmtree(b_dir)
     return launches, a_dir, ply, wall
 
@@ -957,7 +1071,7 @@ def phase_view(octree_dir: str, tmp: str) -> int:
     return launches
 
 
-# --- phase 7: K6 and the streaming build ----------------------------------
+# --- phase 7: K6, K4's promotion stage and the streaming build -----------
 
 
 def kernel_split(fn, reps: int = 5) -> dict:
@@ -1130,13 +1244,13 @@ def streaming_cli(ply: str, out_dir: str, spill: str, wrappers: dict):
         f"{sum(host.values()):.3f} s of host bucket phases")
     if buckets <= 0:
         raise AssertionError("streaming path: no bucket derived on the card")
-    check_build_launches("streaming", launches)
+    check_build_launches("streaming", launches, buckets)
     return wall, phases, launches
 
 
 def phase_streaming(wrappers: dict, tmp: str, ply16: str, incore16: str,
                     incore16_wall: float) -> dict:
-    """7b: phase 5's PLY streamed on the card against phase 5's in-core
+    """7c: phase 5's PLY streamed on the card against phase 5's in-core
     output, then BIG_POINTS built in core and streamed, byte for byte;
     every intermediate is deleted once compared.  Returns the 16M
     streaming path's launch counts and its number of buckets derived on
@@ -1288,8 +1402,10 @@ def main() -> int:
     from point_cloud_viewer_tpu_torch.ops import level_cuda as LC
     from point_cloud_viewer_tpu_torch.ops import scan_cuda as SC
 
+    global CARD
     t_start = time.perf_counter()
     smi = K7.card_label(torch.device(DEVICE))
+    CARD = smi
     log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}; imports of "
         "jax and point_cloud_viewer_tpu refused")
@@ -1325,8 +1441,8 @@ def main() -> int:
         "K3": ("leaf_update_pass", LC.leaf_update_pass,
                "point_cloud_viewer_tpu_torch/csrc/level.cu",
                "point_cloud_viewer_tpu/ops/level_pallas.py:166"),
-        "K4": ("promote_pass", LC.promote_pass,
-               "point_cloud_viewer_tpu_torch/csrc/level.cu",
+        "K4": ("promote_stage", LC.promote_stage,
+               "point_cloud_viewer_tpu_torch/csrc/promote.cu",
                "point_cloud_viewer_tpu/ops/level_pallas.py:203"),
         "K5": ("cull_lod", CC.cull_lod,
                "point_cloud_viewer_tpu_torch/csrc/cull.cu",
@@ -1344,6 +1460,7 @@ def main() -> int:
     phase_core()
     build = {k: v[1] for k, v in kernels.items()
              if k in BUILD_PATH + OFF_PATH}
+    build["K4 pass"] = LC.promote_pass
     tmp = tempfile.mkdtemp(prefix="pcv_chip_smoke_")
     try:
         launches, octree_dir, ply, incore_wall = phase_e2e(build, tmp)
@@ -1352,10 +1469,11 @@ def main() -> int:
         phase_cull_session(octree_dir, table)
         launches["K5"] = phase_view(octree_dir, tmp)
         phase_leaf_levels(record)
+        phase_promote(record)
         streamed, buckets = phase_streaming(build, tmp, ply, octree_dir,
                                             incore_wall)
         log(f"launches on the in-core path (phase 5) {json.dumps(incore)}; "
-            f"on the streaming path (phase 7b, 16M, {buckets} buckets) "
+            f"on the streaming path (phase 7c, 16M, {buckets} buckets) "
             f"{json.dumps(streamed)}; K5 in the viewer (phase 6c, "
             f"{VIEW_FRAMES} frames) {launches['K5']}")
     finally:
@@ -1364,9 +1482,10 @@ def main() -> int:
 
     # Bytes a launch moves at the timed shape (n = SIZES[0] for K1-K4 and
     # K6): K1 i32 in + out; K2 u8 b in, i32 seg_start out; K3 b, seg_start,
-    # leaf and found in, leaf and found out; K4 b and cur in, cur out; K6
-    # (the leaf stage) i64 codes in, u8 b and u8 leaf out.  K5 and K7 were
-    # counted in their phases.
+    # leaf and found in, leaf and found out; K4 (the promotion stage, every
+    # level) b and leaf in, the final levels out; K6 (the leaf stage) i64
+    # codes in, u8 b and u8 leaf out.  K5 and K7 were counted in their
+    # phases.
     per_elem = {"K1": 8, "K2": 5, "K3": 9, "K4": 3, "K6": 10}
     for k, rec in record.items():
         if k in per_elem:
@@ -1398,10 +1517,11 @@ def main() -> int:
         raise AssertionError(f"modules of jax or the JAX package loaded: "
                              f"{leaked}")
     log(f"total {time.perf_counter() - t_start:.3f} s; card: {smi}")
-    log(json.dumps(line))
-    log(json.dumps({"ok": True, "device": {
+    print(smi, flush=True)
+    print(json.dumps(line), flush=True)
+    print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

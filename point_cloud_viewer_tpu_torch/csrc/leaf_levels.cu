@@ -29,7 +29,8 @@
 //
 // Design.  Starts nest: b[i] <= l implies b[i] <= l' for every l' >= l.  So
 // one lane's starts at level l are one 32-bit mask over its 32 rows, made
-// from its eight words of b by a byte-wise add (four rows an add), and a
+// from its eight words of b by a byte-wise add (four rows an add;
+// row_masks.cuh, shared with the K4 promotion), and a
 // segment's count is the distance between two starts.  A warp owns a tile
 // of 1024 rows and never waits on another warp: the passes that touch the
 // points have no block barrier.
@@ -57,6 +58,7 @@
 // (ops/leaf_levels_cuda.py: `leaf_stage_plain`, `leaf_levels_plain`) and
 // to the K2 + K3 loop it replaced (`leaf_stage_loop`).
 
+#include "row_masks.cuh"
 #include "scan_skeleton.cuh"
 
 namespace pcv {
@@ -67,7 +69,6 @@ constexpr int kLeafThreads = 256;
 constexpr int kLeafWarps = kLeafThreads / 32;
 constexpr int kLaneRows = 32;                 // rows a lane owns
 constexpr int kWarpRows = 32 * kLaneRows;     // 1024 rows: a warp's tile
-constexpr unsigned kFull = 0xffffffffu;
 
 // Boundary level of a row whose XOR with the row before it is x; 0x7F for
 // rows past n (never a start).
@@ -79,32 +80,6 @@ __device__ __forceinline__ unsigned bound_level(long long x, long long row,
   if (x == 0) return depth + 1u;
   const int hsb = 63 - __clzll(x);  // x < 0: clz 0, so 63
   return static_cast<unsigned>(max(depth - hsb / 3, 0));
-}
-
-// Bit k set iff row k of the lane starts a segment at `level`: b <= level.
-// Bytes hold b <= 22, or 0x7F for rows past n (never a start), so adding
-// 0x7F - level to each byte carries into no other byte, and a byte's top
-// bit stays clear exactly where b <= level.
-__device__ __forceinline__ unsigned start_mask(const unsigned (&bw)[8],
-                                               int level) {
-  const unsigned add = static_cast<unsigned>(0x7F - level) * 0x01010101u;
-  unsigned m = 0;
-#pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    // 0x01 in each byte that starts, then the four bytes' bits 0, 8, 16,
-    // 24 gathered into bits 24-27 by one multiply.
-    const unsigned le = (~(bw[q] + add) & 0x80808080u) >> 7;
-    m |= ((le * 0x01020408u) >> 24) << (4 * q);
-  }
-  return m;
-}
-
-// start_mask of the 32 bytes of b at p (shared memory, 16-B aligned).
-__device__ __forceinline__ unsigned lane_mask(const uint8_t* p, int level) {
-  const uint4 a = *reinterpret_cast<const uint4*>(p);
-  const uint4 c = *reinterpret_cast<const uint4*>(p + 16);
-  const unsigned bw[8] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
-  return start_mask(bw, level);
 }
 
 // Bits [j, k) of a 32-bit mask, 0 <= j < k <= 32.
@@ -383,16 +358,7 @@ leaf_assign(const uint8_t* b, OutT* leaf, long long n, int depth, int lo,
       small = small_rows(m, r0, before, after, max_points);
     }
     const unsigned now = small & pending;
-    if (now) {
-      const unsigned lv = static_cast<unsigned>(level) * 0x01010101u;
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        // Rows 4q..4q+3 of `now` spread to one 0xFF byte each.
-        const unsigned nib = (now >> (4 * q)) & 0xFu;
-        const unsigned bm = ((nib * 0x00204081u) & 0x01010101u) * 0xFFu;
-        out[q] = (out[q] & ~bm) | (lv & bm);
-      }
-    }
+    if (now) set_bytes(out, now, level);
     pending &= ~small;
   }
 

@@ -1,8 +1,10 @@
 // Single-pass chained scan with decoupled look-back (Merrill and Garland,
 // "Single-pass Parallel Prefix Scan with Decoupled Look-back", NVIDIA 2016):
-// the sweep of K1 (scan.cu) and K2 (level.cu, seg_start).  K3 and K4 still
-// run the three-launch skeleton of scan_skeleton.cuh, whose operators
-// (MaxOp, MinOp, SumOp) this header shares.
+// the sweep of K1 (scan.cu) and K2 (level.cu, seg_start).  K4 (promote.cu)
+// runs its own kernel on the tile states and `look_back` below, one set of
+// states a level.  K3 still runs the three-launch skeleton of
+// scan_skeleton.cuh, whose operators (MaxOp, MinOp, SumOp) this header
+// shares.
 //
 // A sweep is one launch after one cudaMemsetAsync of its scratch:
 //
@@ -10,10 +12,10 @@
 //     only ever waits on tiles that blocks already running have taken;
 //   * each tile reads its input once, reduces it, and publishes one 64-bit
 //     state word (status invalid / aggregate / inclusive prefix, and the
-//     i32 value) with release semantics;
-//   * one warp looks back over the states of 32 predecessors at a time
-//     (acquire loads); __ballot_sync finds the nearest inclusive prefix and
-//     the warp combines the aggregates after it in sweep order;
+//     i32 value);
+//   * one warp looks back over the states of 32 predecessors at a time;
+//     __ballot_sync finds the nearest inclusive prefix and the warp
+//     combines the aggregates after it in sweep order;
 //   * the tile rescans its elements from registers and writes them once.
 //
 // Parameters (those of scan_skeleton.cuh):
@@ -78,11 +80,14 @@ constexpr unsigned long long kStatusMask = 3ull << 32;
 
 using StateRef = cuda::atomic_ref<unsigned long long, cuda::thread_scope_device>;
 
+// A state word carries its own value, so a reader needs nothing else
+// published before it: states are stored and loaded relaxed (a release
+// store costs a GPU-scope fence, which K4 would pay once a level).
 __device__ __forceinline__ void publish(unsigned long long* states,
                                         long long t,
                                         unsigned long long status, int v) {
   StateRef(states[t]).store(status | static_cast<unsigned>(v),
-                            cuda::memory_order_release);
+                            cuda::memory_order_relaxed);
 }
 
 __device__ __forceinline__ int state_value(unsigned long long s) {
@@ -107,10 +112,10 @@ __device__ int look_back(unsigned long long* states, long long t, int lane) {
     unsigned long long s = kPrefix | static_cast<unsigned>(Op::identity());
     if (j >= 0) {
       StateRef ref(states[j]);
-      s = ref.load(cuda::memory_order_acquire);
+      s = ref.load(cuda::memory_order_relaxed);
       while ((s & kStatusMask) == kInvalid) {
         __nanosleep(32);
-        s = ref.load(cuda::memory_order_acquire);
+        s = ref.load(cuda::memory_order_relaxed);
       }
     }
     const unsigned prefixes =

@@ -51,7 +51,7 @@ cudaError_t scan_dir(const int* x, int* out, long long n, bool reverse,
 
 extern "C" {
 
-// Elements per tile of the three-launch skeleton (K3, K4, K6): the caller
+// Elements per tile of the three-launch skeleton (K3): the caller
 // allocates ceil(n / tile) aggregates.
 int pcv_tile_elems() { return pcv::kTile; }
 

@@ -1,7 +1,8 @@
-// Reduce-then-scan skeleton of the port's carried sweeps K3 leaf_update and
-// K4 promote (level.cu).  K1 (scan.cu) and K2 (level.cu seg_start) run the
-// one-launch decoupled look-back scan of lookback_scan.cuh, which shares
-// the operators below, as does K6's carry scan (leaf_levels.cu).
+// Reduce-then-scan skeleton of K3 leaf_update (level.cu), the port's last
+// three-launch sweep.  K1 (scan.cu), K2 (level.cu seg_start) and K4
+// (promote.cu) run the one-launch decoupled look-back of lookback_scan.cuh,
+// which shares the operators below, as does K6's carry scan
+// (leaf_levels.cu).
 //
 // The Pallas kernels these replace (point_cloud_viewer_tpu/ops/scan_pallas.py,
 // ops/level_pallas.py) keep a running carry in SMEM across a grid that the
@@ -26,7 +27,7 @@
 // once, pass 3 writes the outputs; pass 2 touches n / kTile aggregates.
 // Layout: thread t of a tile owns kItems consecutive elements (a blocked
 // arrangement read with scalar loads).  lookback_scan.cuh reads once, with
-// 16-B coalesced loads; moving K3 and K4 onto it is the next step.
+// 16-B coalesced loads; K3 is off the build path and stays here.
 #pragma once
 
 #include <climits>

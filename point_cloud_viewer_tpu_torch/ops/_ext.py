@@ -58,8 +58,11 @@ _SIGNATURES = {
          c_void_p, c_void_p],
         c_int,
     ),
+    "pcv_promote_tile_rows": ([], c_int),
     "pcv_promote": (
-        [c_void_p, c_void_p, c_longlong, c_int, c_void_p, c_void_p], c_int,
+        [c_void_p, c_void_p, c_void_p, c_longlong, c_int, c_int, c_void_p,
+         c_void_p],
+        c_int,
     ),
     "pcv_leaf_tile_rows": ([], c_int),
     "pcv_leaf_stage": (
@@ -215,13 +218,14 @@ def stream_ptr(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def scratch(n: int, per_tile: int, device):
-    """int32 scratch for a sweep's tile aggregates: per_tile values for
-    each of the ceil(n / tile) tiles (the kernels allocate nothing)."""
+def scratch(n: int, device):
+    """int32 scratch for the tile aggregates of a three-launch sweep (K3):
+    one for each of the ceil(n / tile) tiles (the kernels allocate
+    nothing)."""
     import torch
 
     tiles = -(-n // lib().pcv_tile_elems())
-    return torch.empty(tiles * per_tile, dtype=torch.int32, device=device)
+    return torch.empty(tiles, dtype=torch.int32, device=device)
 
 
 def lookback_scratch(n: int, device):

@@ -17,9 +17,10 @@ the JAX (hi, lo) uint32 pairs.  A stable `torch.sort` on that key gives the
 order of JAX's unstable 3-key sort over (hi, lo, idx) (tree_build.py:460,
 :608), because idx is unique.  On the card the leaf stage is one run of
 K6 (ops/leaf_levels_cuda.leaf_stage: sorted codes -> boundary and leaf
-levels), the promotion sweeps are K4 (ops/level_cuda) and the extras rank
-runs through K1 (ops/scan_cuda); CPU tensors take their plain PyTorch
-versions, the leaf stage its per-level K2 + K3 loop.
+levels), the promotion is one run of K4 over every level
+(ops/level_cuda.promote_stage) and the extras rank runs through K1
+(ops/scan_cuda); CPU tensors take their plain PyTorch versions, the leaf
+stage its per-level K2 + K3 loop and the promotion its per-level K4 loop.
 
 Between the upload and the fetch nothing reads the card from the host (no
 `.item()`, no `bincount`, no test for an empty level), so a caller can
@@ -38,7 +39,7 @@ from . import morton
 # _bound_levels lives beside the kernel that replaced it on the card; it is
 # re-exported here, where the JAX package has it.
 from .leaf_levels_cuda import _bound_levels, leaf_stage  # noqa: F401
-from .level_cuda import promote_pass
+from .level_cuda import promote_stage
 from .scan_cuda import scan_1d
 
 # Segment positions and permutations are int32, as in the JAX package.
@@ -52,8 +53,9 @@ def _assign_and_promote(codes: torch.Tensor, depth: int, max_split_level: int,
 
     The fused formulation of tree_build.py:188-246: the leaf stage
     (boundary levels b and leaf levels, one K6 run on the card; on the CPU
-    `_bound_levels` and per leaf level a K2 + K3 sweep), then per promotion
-    level one K4 sweep over b.  root_level/stop_level give the subtree
+    `_bound_levels` and per leaf level a K2 + K3 sweep), then the promotion
+    stage (one K4 run over every level on the card; on the CPU one K4 sweep
+    a level).  root_level/stop_level give the subtree
     semantics of the native tree_levels kernel: level-root segments split
     unconditionally (leaves live at levels root+1..max_split) and
     promotion stops at stop_level."""
@@ -63,13 +65,10 @@ def _assign_and_promote(codes: torch.Tensor, depth: int, max_split_level: int,
         raise ValueError("need root_level < max_split_level")
     b, leaf = leaf_stage(codes, depth, max_split_level, max_points_per_node,
                          root_level, n_real)
-    cur = leaf.clone()
-    for level in range(max_split_level, stop_level, -1):
-        # Every level is swept: K4 on a level with no resident point changes
-        # nothing, so the host never asks the card which levels are empty
-        # (the lax.cond on jnp.any at tree_build.py:232 is a host sync here).
-        promote_pass(b, cur, level)
-    return leaf, cur
+    # Every level is swept: K4 on a level with no resident point changes
+    # nothing, so the host never asks the card which levels are empty (the
+    # lax.cond on jnp.any at tree_build.py:232 would be a host sync here).
+    return leaf, promote_stage(b, leaf, max_split_level, stop_level)
 
 
 def _check_codes(codes: torch.Tensor) -> None:

@@ -28,10 +28,11 @@ from point_cloud_viewer_tpu_torch.ops import tree_build as tb
 
 pytestmark = pytest.mark.cuda
 
-# The build path's kernels (K6: the leaf stage), and K2 and K3, whose
-# per-level loop the leaf stage replaced there.
-_WRAPPERS = (SC.scan_1d, LC.promote_pass, K6.leaf_stage)
-_OFF_PATH = (LC.seg_start_pass, LC.leaf_update_pass)
+# The build path's kernels (K6: the leaf stage; K4: the promotion stage),
+# and K2, K3 and the one-level K4, whose per-level loops the stages
+# replaced there.
+_WRAPPERS = (SC.scan_1d, LC.promote_stage, K6.leaf_stage)
+_OFF_PATH = (LC.seg_start_pass, LC.leaf_update_pass, LC.promote_pass)
 
 
 @pytest.fixture
@@ -125,6 +126,67 @@ def test_seg_start_kernel_offsets_and_start_only(cuda, n, offset,
         for got in _on_both_streams(lambda: LC.seg_start_pass(b, level)):
             assert torch.equal(got, want), level
     assert LC.seg_start_pass.launches == before + 63
+
+
+_PROMOTE_TILE = 8192  # csrc/promote.cu: kPromoteThreads x 32 rows
+
+
+def _promote_inputs(n, kind, device):
+    """(b, leaf) u8: from sorted codes with 37 pad rows (the core's leaf
+    stage), or a start-only input whose every row rests at level 21 (the
+    longest look-back at every level)."""
+    if kind == "start only":
+        b = torch.full((n,), 22, dtype=torch.uint8, device=device)
+        b[:1].fill_(0)
+        return b, torch.full((n,), 21, dtype=torch.uint8, device=device)
+    codes = _k6_codes(n, n).to(device)
+    return K6.leaf_stage(codes, 21, 21, 100, 0, max(n - 37, 0))
+
+
+@pytest.mark.parametrize("n", [_PROMOTE_TILE - 1, _PROMOTE_TILE,
+                               _PROMOTE_TILE + 1, 2 * _PROMOTE_TILE + 5,
+                               1_000_003])
+@pytest.mark.parametrize("kind", ["codes", "start only"])
+def test_promote_stage_matches_plain(cuda, n, kind):
+    """K4 over every level in one launch against its plain version and the
+    per-level K4 loop, bit for bit, with stop_level 0 and > 0; twice in a
+    row and on a second stream, so stale tile states would show."""
+    from point_cloud_viewer_tpu_torch.ops import _ext
+
+    assert _ext.lib().pcv_promote_tile_rows() == _PROMOTE_TILE
+    b, leaf = _promote_inputs(n, kind, cuda)
+    for stop in (0, 3):
+        want = LC.promote_stage_plain(b.cpu(), leaf.cpu(), 21, stop)
+        before = (LC.promote_stage.launches, LC.promote_pass.launches)
+        for got in _on_both_streams(
+                lambda: LC.promote_stage(b, leaf, 21, stop)):
+            assert torch.equal(got.cpu(), want), (kind, stop)
+        assert (LC.promote_stage.launches,
+                LC.promote_pass.launches) == (before[0] + 3, before[1])
+        loop = LC.promote_stage_loop(b, leaf, 21, stop)
+        assert torch.equal(loop.cpu(), want), (kind, stop)
+        assert LC.promote_pass.launches == before[1] + 21 - stop
+    assert torch.equal(LC.promote_stage(b, leaf, 5, 5), leaf)
+
+
+@pytest.mark.parametrize("n", [1, 3, _PROMOTE_TILE + 1, 1_000_003])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_promote_pass_offsets_every_level(cuda, n, offset):
+    """The public K4 (one level, in place) at every level on views at
+    element offsets 0-3 (1-3: unaligned bases, the kernel's scalar
+    loads), from the leaf levels of sorted codes."""
+    b0, leaf = _promote_inputs(n + offset, "codes", "cpu")
+    b = b0.to(cuda)[offset:]
+    buf = leaf.to(cuda)
+    cur = buf[offset:]
+    want = leaf[offset:].clone()
+    before = LC.promote_pass.launches
+    for level in range(21, 0, -1):
+        LC.promote_pass(b, cur, level)
+        LC.promote_pass_plain(b0[offset:], want, level)
+        assert torch.equal(cur.cpu(), want), level
+    assert torch.equal(buf[:offset].cpu(), leaf[:offset])
+    assert LC.promote_pass.launches == before + 21
 
 
 def test_grouped_core_on_card_matches_cpu(cuda):

@@ -118,7 +118,8 @@ def test_cpu_calls_leave_every_launch_counter_at_zero():
     from point_cloud_viewer_tpu_torch.ops import leaf_levels_cuda as K6
 
     wrappers = (SC.scan_1d, LC.seg_start_pass, LC.leaf_update_pass,
-                LC.promote_pass, K6.leaf_stage, K6.leaf_levels)
+                LC.promote_pass, LC.promote_stage, K6.leaf_stage,
+                K6.leaf_levels)
     before = [w.launches for w in wrappers]
     codes = np.random.default_rng(0).integers(0, 2**63, 3_000,
                                               dtype=np.uint64)

@@ -133,7 +133,8 @@ def test_build_leaves_launch_counters_at_zero_on_cpu(tmp_path):
     rng = np.random.default_rng(3)
     batch = PointsBatch(position=rng.random((5_000, 3)), attributes={})
     wrappers = (SC.scan_1d, LC.seg_start_pass, LC.leaf_update_pass,
-                LC.promote_pass, K6.leaf_stage, K6.leaf_levels)
+                LC.promote_pass, LC.promote_stage, K6.leaf_stage,
+                K6.leaf_levels)
     before = [w.launches for w in wrappers]
     build_octree(str(tmp_path / "o"), 0.001, batch, use_device=True,
                  device="cpu")

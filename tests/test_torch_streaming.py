@@ -351,7 +351,7 @@ def test_unported_routes_raise(tmp_path):
 
 def test_cpu_route_launches_no_kernel(tmp_path):
     wrappers = (SC.scan_1d, LC.seg_start_pass, LC.leaf_update_pass,
-                LC.promote_pass)
+                LC.promote_pass, LC.promote_stage)
     before = [w.launches for w in wrappers]
     PS.build_octree_streaming(str(tmp_path / "o"), 0.001,
                               _octant_batch(101_000, 1, seed=10),
