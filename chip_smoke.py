@@ -15,10 +15,13 @@ Phases (any failure raises and the exit code is non-zero):
   3. kernels -- K1-K4 against their plain PyTorch versions on the card, at
                 16M and 64M elements (ragged n), bit for bit (K4, the
                 public one-level entry, at every level), and at 16M K1 (six
-                modes) and K2 (every level) on views at element offsets 1-3
-                (unaligned bases) and K2 on an input whose only start is
-                element 0; CUDA-event median times of kernel and plain
-                version, K1 over torch.cumsum;
+                modes), K2 and K3 (every level) on views at element offsets
+                1-3 (unaligned bases), K2 and K3 on an input whose only
+                start is element 0 and K3 on starts at both ends only;
+                CUDA-event median times of kernel and plain version, one
+                call and 20 back to back (queued behind a sleep of the
+                card, so the card alone is timed; K3 each call from the
+                state before its level), K1 over torch.cumsum;
   4. core    -- the device derivation (build_tree_device_codes_grouped) at
                 16M and 64M synthetic codes on the card against the same
                 call on CPU tensors (the kernels' plain versions), every
@@ -34,8 +37,10 @@ Phases (any failure raises and the exit code is non-zero):
                 not);
   6. cull    -- the viewer's device cull: a. K5 against its plain version
                 on a 1,048,576-node table (partial view, all visible, > 32
-                axes, K = 0, a 64-frame batch), bit for bit, with CUDA-event
-                medians; b. DeviceCullSession.step / step_frames on the card
+                axes, axes all inert, K = 0, a 64-frame batch) and on a
+                table of IEEE corner cases in each setup, bit for bit, with
+                CUDA-event medians and each timed setup's least work;
+                b. DeviceCullSession.step / step_frames on the card
                 against device="cpu" over that table and phase 5's octree,
                 60 orbit frames, bit for bit; c. the port's viewer CLI
                 (cli.view --frames 60, which culls on the card by default)
@@ -58,6 +63,11 @@ Phases (any failure raises and the exit code is non-zero):
                 back to back, device time by kernel (torch.profiler, after
                 K6's: profiles taken after phases 4-6 see the card, one
                 taken before them left K6's without device time);
+                d. (run after b, before c) device time by torch.profiler
+                of K5 in each timed setup of 6a and of K3, held to their
+                queued back-to-back times (off by more than 20%: "not
+                measured"), and the kernels and memsets one K3 call and
+                one K5 call put on the card;
                 c. phase 5's PLY through cli.build_octree --use_device
                 --streaming, byte-compared with phase 5's in-core output, then
                 a 64M-point PLY built in core and streamed on the card and
@@ -73,8 +83,9 @@ Phases (any failure raises and the exit code is non-zero):
                 (bytes over the card's memory rate -- the larger of its
                 published peak and the measured probe rate -- or K5's f32
                 operations over the card's published f32 peak where
-                larger), the bytes over the probe rate alone, and kernel,
-                plain and library times beside them.
+                larger; K5 also for each timed setup), the bytes over the
+                probe rate alone, and kernel, plain and library times
+                beside them.
 
 The CPU route itself is held to the JAX package by tests/test_torch_*.py.
 Every line but the last three starts with the card's name and power limit
@@ -117,6 +128,10 @@ PROBE_ITERS = 20                     # bench.py:144
 # f32 rate outside the tensor cores, NVIDIA H100 SXM data sheet (an FMA
 # counts two operations), at the 700 W power limit.
 FP32_PEAK_OPS = 67e12
+# Clock cycles of the sleep that train_ms queues its calls behind: ~5 ms at
+# the H100's 1.98 GHz boost clock, more than the host takes to enqueue 20
+# calls of any wrapper here.
+QUEUE_CYCLES = 10_000_000
 DEVICE = "cuda"
 # The build's kernels (K6: the leaf stage from the codes; K4: the promotion
 # stage, every level in one launch), and those whose per-level loops the
@@ -170,22 +185,29 @@ def cuda_ms(fn, setup=None, reps=REPS) -> float:
     return statistics.median(times)
 
 
-def train_ms(fn, count: int = 20) -> float:
-    """Median over REPS of the mean CUDA-event time in ms of `count`
-    back-to-back calls of fn: once the card is busy, the host's time to
-    enqueue each call hides behind the one before, so this is the device
-    time of a call (cuda_ms adds the host's time to the first launch)."""
+def train_ms(fn, count: int = 20, setup=None) -> float:
+    """Median over REPS of the mean CUDA-event time in ms of `count` calls
+    of fn back to back, queued behind a sleep of the card (QUEUE_CYCLES):
+    the host enqueues them all while the card sleeps, so the events time
+    the card alone, launch gaps and memsets included (cuda_ms adds the
+    host's time to the first launch).  setup, if given, returns the
+    `count` argument tuples of one repetition (fresh state for an in-place
+    kernel) and runs untimed."""
     import torch
 
-    fn()
+    setup = setup or (lambda: [()] * count)
+    fn(*setup()[0])
     torch.cuda.synchronize()
     times = []
     for _ in range(REPS):
+        args = setup()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(QUEUE_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(count):
-            fn()
+        for a in args:
+            fn(*a)
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / count)
@@ -307,8 +329,6 @@ def phase_kernels(record: dict) -> None:
             ss = LC.seg_start_pass(b, level)
             ss_p = LC.seg_start_pass_plain(b, level)
             err2 = max_abs_err(ss, ss_p)
-            if level == 8:
-                snap["leaf"] = (leaf.clone(), found.clone(), ss_p)
             lk, fk = LC.leaf_update_pass(b, ss, leaf.clone(), found.clone(),
                                          level, 100_000)
             LC.leaf_update_pass_plain(b, ss_p, leaf, found, level, 100_000)
@@ -354,22 +374,23 @@ def phase_kernels(record: dict) -> None:
                 f"{cuda_ms(lambda: LC.seg_start_pass(start_only, 8)):.4f} "
                 f"ms; offset 1, level 8: kernel "
                 f"{cuda_ms(lambda: LC.seg_start_pass(cases['offset 1'], 8)):.4f} ms")
+            k3_cases(record, b, start_only, tag)
             del cases, start_only
         log(f"K2/K3 {tag}: {DEPTH} levels bit-equal; K4 promote_pass {tag}: "
             f"{DEPTH} levels ({promoted_levels} non-empty) bit-equal; leaf "
             "levels "
             f"{torch.bincount(leaf, minlength=DEPTH + 1).tolist()}")
 
-        lf, fd, ss_p = snap["leaf"]
+        # K3 is timed at level 8 from the state the levels before leave.
+        ss_p, lf, fd = k3_level_state(b, 8)
+        fresh = lambda: (lf.clone(), fd.clone())  # noqa: E731
+        k3 = lambda l, f: LC.leaf_update_pass(b, ss_p, l, f, 8, 100_000)  # noqa: E731
         times = {
             "K2": (cuda_ms(lambda: LC.seg_start_pass(b, 8)),
                    cuda_ms(lambda: LC.seg_start_pass_plain(b, 8))),
-            "K3": (cuda_ms(lambda l, f: LC.leaf_update_pass(b, ss_p, l, f, 8,
-                                                            100_000),
-                           lambda: (lf.clone(), fd.clone())),
+            "K3": (cuda_ms(k3, fresh),
                    cuda_ms(lambda l, f: LC.leaf_update_pass_plain(
-                       b, ss_p, l, f, 8, 100_000),
-                           lambda: (lf.clone(), fd.clone()))),
+                       b, ss_p, l, f, 8, 100_000), fresh)),
             "K4": (cuda_ms(lambda c: LC.promote_pass(b, c, busiest[1]),
                            lambda: (snap["cur"].clone(),)),
                    cuda_ms(lambda c: LC.promote_pass_plain(b, c, busiest[1]),
@@ -378,6 +399,16 @@ def phase_kernels(record: dict) -> None:
         log(f"K2 seg_start_pass {tag}, level 8, 20 calls back to back: "
             f"kernel {train_ms(lambda: LC.seg_start_pass(b, 8)):.4f} ms a "
             "call")
+        changed = k3_changed(k3, lf, fd)
+        k3_train = train_ms(k3, setup=lambda: [fresh() for _ in range(20)])
+        record["K3"]["train"][n] = k3_train
+        log(f"K3 leaf_update_pass {tag}, level 8, 20 calls back to back, "
+            f"each from the state before level 8 ({changed} rows set): "
+            f"kernel {k3_train:.4f} ms a call; least bytes "
+            f"{k3_bytes(n, changed)} (6 a row, 2 a row set)")
+        if n == SIZES[0]:
+            record["K3"]["bytes"] = k3_bytes(n, changed)
+            record["K3"]["inputs"] = (b, ss_p, lf, fd)  # phase 7d
         again = snap["cur"].clone()
         log(f"K4 promote_pass {tag}, level {busiest[1]}, 20 calls back to "
             f"back in place on one array: kernel "
@@ -396,6 +427,82 @@ def phase_kernels(record: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def k3_level_state(b, level: int) -> tuple:
+    """(seg_start, leaf, found) at `level`: the plain versions' state after
+    levels 1 .. level - 1 from leaf = DEPTH and found = 0."""
+    import torch
+
+    from point_cloud_viewer_tpu_torch.ops import level_cuda as LC
+
+    n = b.shape[0]
+    leaf = torch.full((n,), DEPTH, dtype=torch.uint8, device=b.device)
+    found = torch.zeros(n, dtype=torch.uint8, device=b.device)
+    for lv in range(1, level):
+        LC.leaf_update_pass_plain(b, LC.seg_start_pass_plain(b, lv), leaf,
+                                  found, lv, LEAF_MAX_POINTS)
+    return LC.seg_start_pass_plain(b, level), leaf, found
+
+
+def k3_changed(call, leaf, found) -> int:
+    """Rows that call(leaf, found) sets, run on copies."""
+    lt, ft = leaf.clone(), found.clone()
+    call(lt, ft)
+    return int((ft != found).sum())
+
+
+def k3_bytes(n: int, changed: int) -> int:
+    """K3's least bytes: b, seg_start and found read once (6 B a row), leaf
+    and found written where a row is set (2 B)."""
+    return 6 * n + 2 * changed
+
+
+def k3_cases(record: dict, b, start_only, tag: str) -> None:
+    """K3 at every level, bit for bit, with all four arrays as views at
+    element offsets UNALIGNED (the scalar epilogue), on the start-only
+    input (every tile's look-back runs to the sweep's first tile; threshold
+    n) and on starts at the first and the last element only (every row
+    below the last carries it as its segment end; threshold n - 1); each
+    call from the plain version's state of the level before.  Times one
+    call at level 8 on the start-only input and at offset 1."""
+    import torch
+
+    from point_cloud_viewer_tpu_torch.ops import level_cuda as LC
+
+    n = b.shape[0]
+    both_ends = start_only.clone()
+    both_ends[n - 1:].fill_(0)
+    cases = {f"offset {o}": (b, 100_000, o) for o in UNALIGNED}
+    cases["start only"] = (start_only, n, 0)
+    cases["first and last"] = (both_ends, n - 1, 0)
+    for name, (bb, threshold, offset) in cases.items():
+        leaf = torch.full((n,), DEPTH, dtype=torch.uint8, device=b.device)
+        found = torch.zeros(n, dtype=torch.uint8, device=b.device)
+        views = [unaligned(t, offset) for t in (bb, leaf, found)]
+        for level in range(1, DEPTH + 1):
+            ss = LC.seg_start_pass_plain(bb, level)
+            views[1].copy_(leaf)
+            views[2].copy_(found)
+            LC.leaf_update_pass(views[0], unaligned(ss, offset), views[1],
+                                views[2], level, threshold)
+            LC.leaf_update_pass_plain(bb, ss, leaf, found, level, threshold)
+            err = max(max_abs_err(views[1], leaf), max_abs_err(views[2], found))
+            record["K3"]["err"] = max(record["K3"]["err"], err)
+            if err:
+                raise AssertionError(f"K3 {name} level {level} {tag}: {err}")
+        if name != "offset 1" and name.startswith("offset"):
+            continue
+        if name != "offset 1" and not bool(found.all()):
+            raise AssertionError(f"K3 {name} {tag}: a row was not set")
+        ss = unaligned(LC.seg_start_pass_plain(bb, 8), offset)
+        fresh = (leaf.fill_(DEPTH), found.zero_())
+        ms = cuda_ms(lambda lv, fv: LC.leaf_update_pass(
+            views[0], ss, lv, fv, 8, threshold),
+            lambda: tuple(unaligned(t, offset) for t in fresh))
+        log(f"K3 leaf_update_pass {tag} {name}, level 8: kernel {ms:.4f} ms")
+    log(f"K3 leaf_update_pass {tag}: {DEPTH} levels bit-equal on "
+        f"{list(cases)}")
+
+
 def phase_promote(record: dict) -> None:
     """7b: K4's promotion stage at SIZES (levels DEPTH down to stop + 1)
     against its plain version and the per-level K4 loop it replaced
@@ -409,6 +516,7 @@ def phase_promote(record: dict) -> None:
 
     from point_cloud_viewer_tpu_torch.ops import leaf_levels_cuda as K6
     from point_cloud_viewer_tpu_torch.ops import level_cuda as LC
+    from point_cloud_viewer_tpu_torch.testing import kernel_split
 
     dev = torch.device(DEVICE)
     for n in SIZES:
@@ -774,44 +882,71 @@ def f32_err(a, b) -> float:
         nan=float("inf")).max())
 
 
-def phase_cull_kernel(record: dict) -> tuple:
-    """6a: K5 against its plain version on the card at CULL_NODES nodes,
-    bit for bit; returns the node table (mins, edges, num_points)."""
+def cull_inputs(dev) -> tuple:
+    """Phase 6a's inputs on dev: the CULL_NODES-node table (as an octree
+    holds it: f64 mins and edges, i64 counts), the same as f32/i32 tensors,
+    a 65,536-node table of IEEE corner cases, and each setup's per-frame
+    tensors by name (a partial view, all visible, the off-axis frame padded
+    to the axis capacity the session's growth rule gives it, a frame whose
+    axes are all inert, a CULL_BATCH-frame batch)."""
     import torch
 
-    from point_cloud_viewer_tpu_torch.ops import cull_cuda as CC
     from point_cloud_viewer_tpu_torch.ops import culling as C
+    from point_cloud_viewer_tpu_torch.testing import adversarial_node_table
 
-    dev = torch.device(DEVICE)
     mins, edges, num_points = synthetic_node_table(CULL_NODES, seed=5)
     table = [torch.from_numpy(a).to(dev) for a in
              (mins.astype(np.float32), edges.astype(np.float32),
               num_points.astype(np.int32))]
+    odd = [torch.from_numpy(a).to(dev)
+           for a in adversarial_node_table(CULL_NODES // 16, seed=6)]
     frusta = cull_frusta(C)
 
     def frame(frustum, a_cap):
         axes, qmin, qmax = C.frustum_axes_and_projections(frustum)
         padded = C.pad_cull_axes(axes, qmin, qmax, a_cap)
         arrays = (frustum.clip_from_query.astype(np.float32), *padded)
-        return [torch.from_numpy(a).to(dev) for a in arrays], len(axes)
+        return [torch.from_numpy(a).to(dev) for a in arrays]
 
     # The session's growth rule (culling.py:220-224) past K5's 32 axes.
     grown = C.DeviceCullSession(mins, edges, num_points, axis_capacity=8,
                                 device=dev)
     grown.step(frusta["off_axis"])
-    off_axis, n_axes = frame(frusta["off_axis"], grown.a_cap)
     if not grown.a_cap > 32:
-        raise AssertionError(f"a_cap {grown.a_cap} <= 32 ({n_axes} axes)")
+        raise AssertionError(f"a_cap {grown.a_cap} <= 32")
     mats, axs, qns, qxs = C.prep_frustum_frames(frusta["orbit"], 32)
-    batch = [torch.from_numpy(a).to(dev) for a in (mats, axs, qns, qxs)]
-    cases = {
-        "partial": (frame(frusta["partial"], 32)[0], table),
-        "all visible": (frame(frusta["all"], 32)[0], table),
-        f"off-axis, {grown.a_cap} axes": (off_axis, table),
-        "K = 0": (frame(frusta["partial"], 32)[0],
-                  [t[:0] for t in table]),
-        f"{CULL_BATCH} frames": (batch, table),
+    inert = frame(frusta["partial"], 32)
+    inert[2].fill_(-np.inf)
+    inert[3].fill_(np.inf)
+    setups = {
+        "partial": frame(frusta["partial"], 32),
+        "all visible": frame(frusta["all"], 32),
+        f"off-axis, {grown.a_cap} axes": frame(frusta["off_axis"],
+                                               grown.a_cap),
+        "inert axes only": inert,
+        f"{CULL_BATCH} frames": [torch.from_numpy(a).to(dev)
+                                 for a in (mats, axs, qns, qxs)],
     }
+    return (mins, edges, num_points), table, odd, setups
+
+
+def phase_cull_kernel(record: dict) -> tuple:
+    """6a: K5 against its plain version on the card, bit for bit, at
+    CULL_NODES nodes and on an adversarial table, in every setup of
+    cull_inputs and with K = 0; CUDA-event medians and the least work of
+    the timed setups (all but the inert frame).  Returns the node table
+    (mins, edges, num_points) and the timed setups (per-frame tensors,
+    node tensors) for the device times of phase 7d."""
+    import torch
+
+    from point_cloud_viewer_tpu_torch.ops import cull_cuda as CC
+
+    dev = torch.device(DEVICE)
+    octree_table, table, odd, setups = cull_inputs(dev)
+    cases = {name: (per_frame, table) for name, per_frame in setups.items()}
+    cases["K = 0"] = (setups["partial"], [t[:0] for t in table])
+    cases.update({f"adversarial table, {name}": (per_frame, odd)
+                  for name, per_frame in setups.items()})
     for name, (per_frame, nodes) in cases.items():
         before = CC.cull_lod.launches
         got = CC.cull_lod(*per_frame, *nodes)
@@ -822,56 +957,78 @@ def phase_cull_kernel(record: dict) -> tuple:
         visible = int(got[1].sum())
         log(f"K5 cull_lod {name}: K={nodes[0].shape[0]}, shape "
             f"{tuple(got[0].shape)}, axes {per_frame[1].shape[-2]}, "
-            f"visible {visible}, launches {launched}, max_abs_err "
-            f"(sizes, visible, priority) {errs}")
+            f"visible {visible}, NaN sizes {int(got[0].isnan().sum())}, "
+            f"launches {launched}, max_abs_err (sizes, visible, priority) "
+            f"{errs}")
         record["K5"]["err"] = max(record["K5"]["err"], *errs)
         if any(errs) or launched != (1 if nodes[0].shape[0] else 0):
             raise AssertionError(f"K5 {name}: errors {errs}, launches "
                                  f"{launched}")
-        if name == "all visible" and visible != CULL_NODES:
-            raise AssertionError(f"K5 all visible: {visible} visible")
+        if name in ("all visible", "inert axes only") and visible != CULL_NODES:
+            raise AssertionError(f"K5 {name}: {visible} visible")
         if name == "partial" and not 0 < visible < CULL_NODES:
             raise AssertionError(f"K5 partial view: {visible} visible")
 
-    times = {}
-    for name in ("partial", f"{CULL_BATCH} frames"):
-        per_frame, nodes = cases[name]
-        times[name] = (cuda_ms(lambda: CC.cull_lod(*per_frame, *nodes)),
-                       cuda_ms(lambda: CC.cull_lod_plain(*per_frame, *nodes)))
-        log(f"K5 {name} at K={CULL_NODES}: kernel {times[name][0]:.4f} ms, "
-            f"plain {times[name][1]:.4f} ms")
+    timed = {name: cases[name] for name in setups
+             if name != "inert axes only"}
+    times, work = {}, {}
+    for name, (per_frame, nodes) in timed.items():
+        ms = cuda_ms(lambda: CC.cull_lod(*per_frame, *nodes))
+        pms = (cuda_ms(lambda: CC.cull_lod_plain(*per_frame, *nodes))
+               if name in ("partial", f"{CULL_BATCH} frames") else None)
+        times[name] = (ms, pms)
+        work[name] = cull_work(per_frame, nodes)
+        log(f"K5 {name} at K={CULL_NODES}: kernel {ms:.4f} ms (CUDA events, "
+            "one call)" + ("" if pms is None else f", plain {pms:.4f} ms")
+            + f"; least work {work[name][0]} B, {work[name][1]} f32 "
+            "operations")
     record["K5"]["times"] = times
-    record["K5"]["bytes"], record["K5"]["ops"] = cull_work(
-        *cases["partial"])
-    return mins, edges, num_points
+    record["K5"]["work"] = work
+    record["K5"]["bytes"], record["K5"]["ops"] = work["partial"]
+    return octree_table, timed
+
+
+# Least f32 operations of K5 for one node and frame (csrc/cull.cu): the
+# corners' six coordinates (0 * edge, then six sums: 7); the screen size
+# from its distinct terms (18 products, 12 + 24 + 24 sums, 16 quotients,
+# 32 clamp comparisons, 28 min/max, 2 differences and their product: 157);
+# visibility and priority (2).  And for each live axis tested, the
+# two-corner form: 6 products, 3 comparisons ordering the term pairs, 4
+# sums, 2 comparisons with the query range.
+CULL_NODE_OPS = 7 + 157 + 2
+CULL_AXIS_OPS = 6 + 3 + 4 + 2
 
 
 def cull_work(per_frame, nodes) -> tuple:
-    """(bytes, f32 operations) that one single-frame K5 launch needs on
-    these inputs: every input read once and every output (size, visible,
-    priority) written once; per node 271 operations for the corners and
-    the screen size, plus 56 for each SAT axis tested up to the first that
-    separates (csrc/cull.cu stops there)."""
+    """(bytes, f32 operations) that one K5 launch needs on these inputs,
+    one frame or F: the node table read once, each frame's matrix and axes
+    read once, every output (size, visible, priority) written once; per node
+    and frame CULL_NODE_OPS, plus CULL_AXIS_OPS for each live axis (query
+    range other than (-inf, inf)) tested up to the first that separates."""
     import torch
 
     matrix, axes, qmin, qmax = per_frame
+    if matrix.dim() == 2:
+        matrix, axes, qmin, qmax = (t[None] for t in per_frame)
     mins, edges, _ = nodes
-    k, a_cap = edges.shape[0], axes.shape[0]
+    frames, k = matrix.shape[0], edges.shape[0]
     nbytes = (sum(t.numel() * t.element_size() for t in (*per_frame, *nodes))
-              + k * (4 + 1 + 4))
+              + frames * k * (4 + 1 + 4))
     unit = torch.tensor([[c & 1, (c >> 1) & 1, (c >> 2) & 1]
                          for c in range(8)], dtype=torch.float32,
                         device=mins.device)
     corners = mins[:, None, :] + unit[None] * edges[:, None, None]
-    tested = torch.full((k,), a_cap, dtype=torch.int64, device=mins.device)
-    alive = torch.ones(k, dtype=torch.bool, device=mins.device)
-    for j in range(a_cap):
-        u = axes[j]
-        p = corners[..., 0] * u[0] + corners[..., 1] * u[1] + corners[..., 2] * u[2]
-        separated = (p.amin(1) > qmax[j]) | (p.amax(1) < qmin[j])
-        tested[alive & separated] = j + 1
-        alive &= ~separated
-    return nbytes, 271 * k + 56 * int(tested.sum())
+    tested = 0
+    for f in range(frames):
+        live = ~((qmin[f] == -np.inf) & (qmax[f] == np.inf))
+        alive = torch.ones(k, dtype=torch.bool, device=mins.device)
+        for j in torch.nonzero(live).flatten().tolist():
+            u = axes[f, j]
+            p = (corners[..., 0] * u[0] + corners[..., 1] * u[1]
+                 + corners[..., 2] * u[2])
+            tested += int(alive.sum())
+            alive &= ~((p.amin(1) > qmax[f, j]) | (p.amax(1) < qmin[f, j]))
+    return nbytes, CULL_NODE_OPS * k * frames + CULL_AXIS_OPS * tested
 
 
 def orbit_matrices(center, diag, frames, width, height) -> list:
@@ -1074,30 +1231,134 @@ def phase_view(octree_dir: str, tmp: str) -> int:
 # --- phase 7: K6, K4's promotion stage and the streaming build -----------
 
 
-def kernel_split(fn, reps: int = 5) -> dict:
-    """Device ms of each CUDA kernel that fn launches, by name, averaged
-    over `reps` calls after a warm-up (torch.profiler); {} when the
-    profiler sees no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def device_readings(fn, setup=None) -> dict:
+    """fn's CUDA-event median of one call (cuda_ms), of 20 calls queued
+    back to back (train_ms) and the device time of the port's kernels in a
+    call (torch.profiler: testing.kernel_split); setup, if given, returns
+    fresh arguments for one call (an in-place kernel) and runs untimed.
+    The device time reads None (not measured) where no profile kept a
+    record of the kernel, or where it and the back-to-back time differ by
+    more than 20%: a profile that dropped or mistimed records."""
+    from point_cloud_viewer_tpu_torch.testing import kernel_split
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None)
-        if us is None:
-            us = getattr(ev, "cuda_time_total", 0.0)
-        if us and "pcv::" in ev.key:
-            name = re.sub(r"^(void )?pcv::\(anonymous namespace\)::", "",
-                          ev.key).split("(")[0]
-            out[name] = out.get(name, 0.0) + us / 1e3 / reps
+    setup = setup or (lambda: ())
+    out = {"ms": cuda_ms(fn, setup),
+           "train_ms": train_ms(fn, setup=lambda: [setup()
+                                                   for _ in range(20)])}
+    split = kernel_split(lambda: fn(*setup()))
+    dms = sum(split.values()) if split else None
+    out["profiled_ms"] = dms
+    if dms is not None and abs(dms - out["train_ms"]) > 0.2 * out["train_ms"]:
+        dms = None
+    out["device_ms"] = dms
     return out
+
+
+def readings_text(r: dict) -> str:
+    """One line of device_readings' numbers."""
+    dms, pms = r["device_ms"], r["profiled_ms"]
+    device = (f"{dms:.4f} ms a call (torch.profiler)" if dms is not None
+              else "not measured (the profiler kept no record)" if pms is None
+              else f"not measured (the profiler read {pms:.4f} ms a call, "
+                   "more than 20% off the queued back-to-back time)")
+    return (f"device {device}; 20 queued back to back {r['train_ms']:.4f} "
+            f"ms a call; one call {r['ms']:.4f} ms (CUDA events)")
+
+
+def phase_device_times(record: dict, cull_setups: dict) -> None:
+    """7d, after 7a-b (profiles taken there see the card): device_readings
+    of K5 in each timed setup of 6a and of K3 at SIZES[0], level 8, from
+    phase 3's timed state; and the kernels and memsets one call of each
+    puts on the card (testing.device_ops), which must be one memset and
+    one lookback_scan for K3, one cull_kernel for K5."""
+    import torch
+
+    from point_cloud_viewer_tpu_torch.ops import cull_cuda as CC
+    from point_cloud_viewer_tpu_torch.ops import level_cuda as LC
+    from point_cloud_viewer_tpu_torch.testing import device_ops
+
+    device = {}
+    for name, (per_frame, nodes) in cull_setups.items():
+        r = device_readings(lambda: CC.cull_lod(*per_frame, *nodes))
+        device[name] = r["device_ms"]
+        log(f"K5 {name}: {readings_text(r)}")
+    record["K5"]["device"] = device
+    record["K5"]["device_ms"] = device["partial"]
+    per_frame, nodes = cull_setups["partial"]
+    record["K5"]["device_ops"] = device_ops(
+        lambda: CC.cull_lod(*per_frame, *nodes))
+
+    b, ss, leaf, found = record["K3"].pop("inputs")
+    k3 = lambda l, f: LC.leaf_update_pass(b, ss, l, f, 8, 100_000)  # noqa: E731
+    r = device_readings(k3, lambda: (leaf.clone(), found.clone()))
+    record["K3"]["device_ms"] = r["device_ms"]
+    log(f"K3 leaf_update_pass n={b.shape[0]}, level 8, each call from the "
+        f"state before level 8: {readings_text(r)}")
+    lt, ft = leaf.clone(), found.clone()
+    record["K3"]["device_ops"] = device_ops(lambda: k3(lt, ft))
+    want = {"K3": {"kernels": ["lookback_scan"], "memsets": 1},
+            "K5": {"kernels": ["cull_kernel"], "memsets": 0}}
+    for k, ops in want.items():
+        got = record[k]["device_ops"]
+        log(f"{k}: one call puts {len(got['kernels'])} kernel(s) "
+            f"{got['kernels']} and {got['memsets']} memset(s) on the card")
+        if got != ops:
+            raise AssertionError(f"{k} is not {ops} a call: {got}")
+    del b, ss, leaf, found, lt, ft
+    torch.cuda.empty_cache()
+
+
+def ab_turn() -> list:
+    """One turn of kernel_ab.py, in whichever port this process imports:
+    K5 in the timed setups of 6a and K3 at SIZES[0], level 8, on the codes
+    (from the state before level 8) and on the start-only input (every row
+    set), each held bit-equal to its plain version, then device_readings
+    and the least work of each call; K3 on the start-only input from leaf =
+    DEPTH, found = 0.  -> rows of dicts."""
+    import torch
+
+    from point_cloud_viewer_tpu_torch.ops import cull_cuda as CC
+    from point_cloud_viewer_tpu_torch.ops import level_cuda as LC
+    from point_cloud_viewer_tpu_torch.ops.tree_build import _bound_levels
+
+    dev = torch.device(DEVICE)
+    _, table, _, setups = cull_inputs(dev)
+    rows = []
+    for name, per_frame in setups.items():
+        if name == "inert axes only":
+            continue
+        want = CC.cull_lod_plain(*per_frame, *table)
+        got = CC.cull_lod(*per_frame, *table)
+        errs = [f32_err(g, w) for g, w in zip(got, want)]
+        if any(errs):
+            raise AssertionError(f"K5 {name}: {errs}")
+        nbytes, ops = cull_work(per_frame, table)
+        rows.append({"kernel": "K5", "setup": name, "bytes": nbytes,
+                     "ops": ops, **device_readings(
+                         lambda: CC.cull_lod(*per_frame, *table))})
+    n = SIZES[0]
+    b = _bound_levels(torch.sort(torch.from_numpy(
+        synthetic_codes(n, seed=n).view(np.int64)).to(dev)).values, DEPTH)
+    start_only = torch.full((n,), DEPTH + 1, dtype=torch.uint8, device=dev)
+    start_only[:1].fill_(0)
+    fresh = (LC.seg_start_pass_plain(start_only, 8),
+             torch.full((n,), DEPTH, dtype=torch.uint8, device=dev),
+             torch.zeros(n, dtype=torch.uint8, device=dev))
+    for name, bb, threshold, state in (
+            ("codes, level 8", b, LEAF_MAX_POINTS, k3_level_state(b, 8)),
+            ("start only, level 8", start_only, n, fresh)):
+        ss, leaf, found = state
+        k3 = lambda l, f: LC.leaf_update_pass(bb, ss, l, f, 8, threshold)  # noqa: E731
+        want = LC.leaf_update_pass_plain(bb, ss, leaf.clone(), found.clone(),
+                                         8, threshold)
+        got = k3(leaf.clone(), found.clone())
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"K3 {name}: differs from plain")
+        rows.append({"kernel": "K3", "setup": name,
+                     "bytes": k3_bytes(n, k3_changed(k3, leaf, found)),
+                     "ops": 0, **device_readings(
+                         k3, lambda: (leaf.clone(), found.clone()))})
+    return rows
 
 
 def bucket_codes(codes, root_level: int):
@@ -1128,6 +1389,7 @@ def phase_leaf_levels(record: dict) -> None:
         _bound_levels,
         build_tree_device_codes_grouped,
     )
+    from point_cloud_viewer_tpu_torch.testing import kernel_split
 
     dev = torch.device(DEVICE)
     for n in SIZES:
@@ -1374,6 +1636,20 @@ def bounds(record: dict, probes: dict, per_call: dict) -> dict:
         lib = rec["lib_ms"]
         out[k] = {"bytes": rec["bytes"], "bound_ms": bound, "bound_by": by,
                   "bound_probe_ms": rec["bytes"] / (probe * 1e9) * 1e3}
+        for name, (nbytes, ops) in rec.get("work", {}).items():
+            t_b, t_o = nbytes / (rate * 1e9) * 1e3, ops / FP32_PEAK_OPS * 1e3
+            dms = rec["device"].get(name)
+            setup = {"ms": rec["times"][name][0], "device_ms": dms,
+                     "bound_ms": max(t_b, t_o),
+                     "bound_by": "bytes" if t_b >= t_o else "operations",
+                     "bytes": nbytes, "ops": ops}
+            out[k].setdefault("setups", {})[name] = setup
+            log(f"bound {k} {name}: {nbytes} B, {ops} f32 ops; bound "
+                f"{setup['bound_ms']:.4f} ms ({setup['bound_by']}); kernel "
+                f"{setup['ms']:.4f} ms one call = "
+                f"{setup['ms'] / setup['bound_ms']:.2f}x, device "
+                + ("not measured" if dms is None else
+                   f"{dms:.4f} ms = {dms / setup['bound_ms']:.2f}x"))
         calls = ", ".join(f"{where} {n:.3f}" for where, n in per_call[k].items())
         log(f"bound {k}: {rec['bytes']} B"
             + (f", {rec['ops']} f32 ops" if "ops" in rec else "")
@@ -1454,7 +1730,7 @@ def main() -> int:
                "point_cloud_viewer_tpu_torch/csrc/stream_probe.cu",
                "bench.py:199"),
     }
-    record = {k: {"err": 0, "times": {}, "lib": {}}
+    record = {k: {"err": 0, "times": {}, "lib": {}, "train": {}}
               for k in kernels}
     phase_kernels(record)
     phase_core()
@@ -1465,11 +1741,13 @@ def main() -> int:
     try:
         launches, octree_dir, ply, incore_wall = phase_e2e(build, tmp)
         incore = dict(launches)
-        table = phase_cull_kernel(record)
+        table, cull_setups = phase_cull_kernel(record)
         phase_cull_session(octree_dir, table)
         launches["K5"] = phase_view(octree_dir, tmp)
         phase_leaf_levels(record)
         phase_promote(record)
+        phase_device_times(record, cull_setups)
+        del cull_setups
         streamed, buckets = phase_streaming(build, tmp, ply, octree_dir,
                                             incore_wall)
         log(f"launches on the in-core path (phase 5) {json.dumps(incore)}; "
@@ -1481,12 +1759,11 @@ def main() -> int:
     launches["K7"], probes = phase_probe(record)
 
     # Bytes a launch moves at the timed shape (n = SIZES[0] for K1-K4 and
-    # K6): K1 i32 in + out; K2 u8 b in, i32 seg_start out; K3 b, seg_start,
-    # leaf and found in, leaf and found out; K4 (the promotion stage, every
-    # level) b and leaf in, the final levels out; K6 (the leaf stage) i64
-    # codes in, u8 b and u8 leaf out.  K5 and K7 were counted in their
-    # phases.
-    per_elem = {"K1": 8, "K2": 5, "K3": 9, "K4": 3, "K6": 10}
+    # K6): K1 i32 in + out; K2 u8 b in, i32 seg_start out; K4 (the
+    # promotion stage, every level) b and leaf in, the final levels out; K6
+    # (the leaf stage) i64 codes in, u8 b and u8 leaf out.  K3 (from the
+    # rows its timed call sets), K5 and K7 were counted in their phases.
+    per_elem = {"K1": 8, "K2": 5, "K4": 3, "K6": 10}
     for k, rec in record.items():
         if k in per_elem:
             rec["bytes"] = per_elem[k] * SIZES[0]
@@ -1509,7 +1786,11 @@ def main() -> int:
          "library_ms": record[k]["lib_ms"], "lib_ms": record[k]["lib_ms"],
          "bytes": record[k]["bytes"],
          "bound_probe_ms": bound[k]["bound_probe_ms"],
-         "launches_per_call": per_call[k]}
+         "launches_per_call": per_call[k],
+         "device_ms": record[k].get("device_ms"),
+         "device_ops_per_call": record[k].get("device_ops"),
+         "back_to_back_ms": record[k]["train"].get(SIZES[0]),
+         "setups": bound[k].get("setups")}
         for k, (name, _, src, rep) in kernels.items()
     ]}
     leaked = sorted(m for m in sys.modules if finder.refused(m))

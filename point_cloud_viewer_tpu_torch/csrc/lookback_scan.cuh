@@ -1,10 +1,9 @@
 // Single-pass chained scan with decoupled look-back (Merrill and Garland,
 // "Single-pass Parallel Prefix Scan with Decoupled Look-back", NVIDIA 2016):
-// the sweep of K1 (scan.cu) and K2 (level.cu, seg_start).  K4 (promote.cu)
-// runs its own kernel on the tile states and `look_back` below, one set of
-// states a level.  K3 still runs the three-launch skeleton of
-// scan_skeleton.cuh, whose operators (MaxOp, MinOp, SumOp) this header
-// shares.
+// the sweep of K1 (scan.cu), K2 and K3 (level.cu: seg_start and the leaf
+// update).  K4 (promote.cu) runs its own kernel on the tile states and
+// `look_back` below, one set of states a level.  The operators (MaxOp,
+// MinOp, SumOp) come from scan_skeleton.cuh.
 //
 // A sweep is one launch after one cudaMemsetAsync of its scratch:
 //
@@ -18,7 +17,7 @@
 //     combines the aggregates after it in sweep order;
 //   * the tile rescans its elements from registers and writes them once.
 //
-// Parameters (those of scan_skeleton.cuh):
+// Parameters:
 //   Op   the associative operator: `T`, `identity()`, `combine(a, b)`
 //        (a is the earlier part of the sweep; Op need not commute); T is
 //        int (the state word holds 32 bits of value);
@@ -27,8 +26,13 @@
 //        and `bool closes(T agg)`: true when a tile's aggregate alone is its
 //        inclusive prefix (K2: a tile holding a segment start), so it
 //        publishes a prefix at once and look-backs stop there;
-//   Epi  the fused epilogue: `int* out` and `int value(excl, incl)`, the
-//        i32 written to out[i];
+//   Epi  the fused epilogue: `int value(excl, incl)` of each element, then
+//        either `int* out`, which receives it as i32, or, for an epilogue
+//        that declares `using InPlace = void` (K3), `bases()` (the OR of
+//        its base addresses, for the 16-B test) and
+//        `apply<VEC>(at, n, v[W])`, called with the values of the W
+//        elements of a lane's 16-B chunk of input at physical index `at`
+//        (ragged where at + W > n), which updates its own arrays in place;
 //   REV  sweep direction: a reverse sweep visits physical n-1 .. 0.
 //
 // Layout: tiles of kLbTile elements are cut from element 0 whatever the
@@ -38,26 +42,30 @@
 // the order inside the tile in registers.  Within a tile, warp w owns
 // 32 x ITEMS consecutive elements; a lane owns 16-B chunks (4 i32 or 16 u8),
 // and neighbouring lanes load neighbouring chunks with one 16-B load each
-// (R = ITEMS / 4 loads a lane for i32, ITEMS / 16 for u8).  Outputs are i32:
-// for i32 input a lane's chunk of output is 16 B and is stored directly;
-// for u8 input it is 64 B, so a warp stages each 2 KB of output in shared
-// memory and stores it as 16 B a lane, neighbouring lanes on neighbouring
-// addresses.  The ragged tail is masked; a base pointer that is not 16-B
-// aligned (a view such as x[1:]) takes the same kernel with scalar loads
-// and stores (VEC = false), chosen by run_lookback from the pointers.
+// (R = ITEMS / 4 loads a lane for i32, ITEMS / 16 for u8).  Outputs to
+// `out` are i32: for i32 input a lane's chunk of output is 16 B and is
+// stored directly; for u8 input it is 64 B, so a warp stages each 2 KB of
+// output in shared memory and stores it as 16 B a lane, neighbouring lanes
+// on neighbouring addresses.  An in-place epilogue gets the lane's chunk
+// and does its own 16-B loads and stores.  The ragged tail is masked; a
+// base pointer that is not 16-B aligned (a view such as x[1:]) takes the
+// same kernel with scalar loads and stores (VEC = false), chosen by
+// run_lookback from the pointers.
 //
 // Tile size: 8192 elements (256 threads x 32).  Look-back traffic is one
-// 8-B state a tile against 64 KB (K1) or 40 KB (K2) of data; each block
-// holds at most 16 KB of shared memory and its registers allow at least
-// two blocks on each of the 132 SMs (registers and smem: nvcc -Xptxas -v,
-// printed by chip_smoke.py).  The shape comes from tune/lookback_tiles.cu,
-// which times K1 and K2 at other block shapes (numbers in PERF.md).
+// 8-B state a tile against 64 KB (K1), 40 KB (K2) or 48-72 KB (K3) of
+// data; each block holds at most 16 KB of shared memory and its registers
+// allow at least two blocks on each of the 132 SMs (registers and smem:
+// nvcc -Xptxas -v, printed by chip_smoke.py).  The shape comes from
+// tune/lookback_tiles.cu, which times K1 and K2 at other block shapes
+// (numbers in PERF.md).
 //
 // Scratch: (num_tiles + 1) u64 words, cleared by run_lookback on the
 // launch's stream: word 0 holds the tile counter, word 1 + t tile t's state.
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda/atomic>
 #include <cuda_runtime.h>
@@ -79,6 +87,12 @@ constexpr unsigned long long kPrefix = 2ull << 32;
 constexpr unsigned long long kStatusMask = 3ull << 32;
 
 using StateRef = cuda::atomic_ref<unsigned long long, cuda::thread_scope_device>;
+
+// True for an epilogue that updates its own arrays (`using InPlace`).
+template <class Epi, class = void>
+struct InPlaceEpi : std::false_type {};
+template <class Epi>
+struct InPlaceEpi<Epi, std::void_t<typename Epi::InPlace>> : std::true_type {};
 
 // A state word carries its own value, so a reader needs nothing else
 // published before it: states are stored and loaded relaxed (a release
@@ -281,7 +295,14 @@ lookback_scan(Src src, Epi epi, long long n, unsigned long long* scratch) {
     }
   }
 
-  if constexpr (W == 4) {
+  if constexpr (InPlaceEpi<Epi>::value) {
+    // The epilogue reads and writes its own arrays, chunk by chunk.
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int pr = REV ? R - 1 - r : r;
+      epi.template apply<VEC>(warp_at + pr * kSub + pl * W, n, o[r]);
+    }
+  } else if constexpr (W == 4) {
     // i32 in, i32 out: a lane's chunk of output is 16 B.
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -323,8 +344,13 @@ cudaError_t run_lookback(Src src, Epi epi, long long n,
   cudaError_t err = cudaMemsetAsync(
       scratch, 0, (tiles + 1) * sizeof(unsigned long long), stream);
   if (err != cudaSuccess) return err;
-  const bool vec = ((reinterpret_cast<uintptr_t>(src.p) |
-                     reinterpret_cast<uintptr_t>(epi.out)) & 15) == 0;
+  uintptr_t bases = reinterpret_cast<uintptr_t>(src.p);
+  if constexpr (InPlaceEpi<Epi>::value) {
+    bases |= epi.bases();
+  } else {
+    bases |= reinterpret_cast<uintptr_t>(epi.out);
+  }
+  const bool vec = (bases & 15) == 0;
   const unsigned grid = static_cast<unsigned>(tiles);
   if (vec) {
     lookback_scan<Op, REV, true, kLbThreads, kLbItems>

@@ -51,11 +51,7 @@ cudaError_t scan_dir(const int* x, int* out, long long n, bool reverse,
 
 extern "C" {
 
-// Elements per tile of the three-launch skeleton (K3): the caller
-// allocates ceil(n / tile) aggregates.
-int pcv_tile_elems() { return pcv::kTile; }
-
-// Elements per tile of the look-back scan (K1, K2): the caller allocates
+// Elements per tile of the look-back scan (K1-K3): the caller allocates
 // ceil(n / tile) + 1 u64 words of scratch.
 int pcv_lookback_tile_elems() { return pcv::kLbTile; }
 

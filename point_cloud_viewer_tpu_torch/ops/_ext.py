@@ -32,7 +32,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libpcv_torch_kernels.so")
 
 # Elements a tile of the look-back scan (csrc/lookback_scan.cuh kLbTile):
-# K1 and K2 size their scratch with it; lib() checks the library agrees.
+# K1-K3 size their scratch with it; lib() checks the library agrees.
 LOOKBACK_TILE = 8192
 
 NVCC_FLAGS = [
@@ -43,7 +43,6 @@ NVCC_FLAGS = [
 # name -> (argtypes, restype).  Pointers and the stream are c_void_p (a
 # plain int would be cut to 32 bits), element counts c_longlong.
 _SIGNATURES = {
-    "pcv_tile_elems": ([], c_int),
     "pcv_lookback_tile_elems": ([], c_int),
     "pcv_error_string": ([c_int], c_char_p),
     "pcv_scan_i32": (
@@ -218,18 +217,8 @@ def stream_ptr(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def scratch(n: int, device):
-    """int32 scratch for the tile aggregates of a three-launch sweep (K3):
-    one for each of the ceil(n / tile) tiles (the kernels allocate
-    nothing)."""
-    import torch
-
-    tiles = -(-n // lib().pcv_tile_elems())
-    return torch.empty(tiles, dtype=torch.int32, device=device)
-
-
 def lookback_scratch(n: int, device):
-    """Scratch of one look-back sweep (K1, K2): a tile counter and one
+    """Scratch of one look-back sweep (K1-K3): a tile counter and one
     64-bit state word for each of the ceil(n / LOOKBACK_TILE) tiles.  The C
     entry clears it on the launch's stream, so torch.empty suffices."""
     import torch

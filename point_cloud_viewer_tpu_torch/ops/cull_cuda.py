@@ -14,11 +14,19 @@ for all frames and counts `cull_lod.launches`; on CPU tensors it runs
 `cull_lod_plain`.
 
 `cull_lod_plain` writes every product and sum as its own elementwise op,
-in the kernel's order, so the two are bit-equal: no einsum or matmul,
+one corner at a time, so the two are bit-equal: no einsum or matmul,
 whose association and TF32 settings are the library's.  Unlike the Pallas
 kernel (fixed 32 axes, padded with [-1, 1] query ranges), the axis count
 is the caller's: the cull session pads with zero axes and a (-inf, inf)
-range, which never separate either (culling.py:159-170).
+range, which never separate either (culling.py:133-144).
+
+The kernel does less work for the same bits (csrc/cull.cu): each block
+drops its frame's (-inf, inf) axes; an axis is tested on the two corners
+whose projections are the least and the greatest (the smaller and the
+larger term on each coordinate), falling back to all 8 corners where one
+of those two is not finite; and the screen size forms each distinct
+product and (x, y) partial sum once.  tests/test_torch_cull.py models
+these rules in PyTorch and holds them to `cull_lod_plain` bit for bit.
 """
 
 from __future__ import annotations

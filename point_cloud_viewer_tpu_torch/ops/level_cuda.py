@@ -22,18 +22,22 @@ Unlike the JAX kernels, which return new arrays, these update their u8
 state in place (no second copy of the state per level), and they take
 unpadded arrays: the CUDA kernels mask the ragged tail themselves.
 
-Bounds (device-memory bytes an element): K2 5 (u8 b in, i32 out); K3 9;
-K4 3, for one level or for all of them.  K2 is one launch (after a memset
-of its scratch), the decoupled look-back scan of csrc/lookback_scan.cuh: b
-is read once, 16 bytes a lane, and seg_start written once, staged through
-shared memory to go out as 16 B a lane; a tile holding a segment start
-publishes its prefix at once, so look-backs stop there.  K3 is three
-launches of the reduce-then-scan skeleton (csrc/scan_skeleton.cuh), which
-reads the input twice.  K4 (csrc/promote.cu) is one launch after one
-memset, for one level or for all: each tile reads b and the levels once,
-keeps them in registers across the levels, looks back over its
-predecessors' 4-bit (segment started, count mod 8) states only where an
-active row precedes its first start, and writes the levels once.
+Bounds (device-memory bytes an element): K2 5 (u8 b in, i32 out); K3 6
+(b, seg_start and found in) plus 2 a row it sets (leaf and found out); K4
+3, for one level or for all of them.  K2 and K3 are each one launch
+(after a memset of its scratch), the decoupled look-back scan of
+csrc/lookback_scan.cuh: b is read once, 16 bytes a lane.  K2 writes
+seg_start once, staged through shared memory to go out as 16 B a lane; a
+tile holding a segment start publishes its prefix at once, so look-backs
+stop there.  K3 sweeps in reverse (a tile holding a start closes at its
+least start) and updates leaf/found in the look-back's epilogue: a lane
+reads seg_start and found for its 16 elements with 16-B loads, and only
+where one of them changes reads leaf and stores leaf and found.  K4
+(csrc/promote.cu) is one launch after one memset, for one level or for
+all: each tile reads b and the levels once, keeps them in registers
+across the levels, looks back over its predecessors' 4-bit (segment
+started, count mod 8) states only where an active row precedes its first
+start, and writes the levels once.
 
 On a CUDA tensor each wrapper launches its kernel from csrc/level.cu or
 csrc/promote.cu and counts it in `<wrapper>.launches`; on a CPU tensor it
@@ -146,11 +150,11 @@ def leaf_update_pass(b, seg_start, leaf, found, level: int, threshold: int):
         return leaf, found
     lib = _ext.lib()
     with torch.cuda.device(b.device):
-        agg = _ext.scratch(n, b.device)
+        scratch = _ext.lookback_scratch(n, b.device)
         err = lib.pcv_leaf_update(
             b.data_ptr(), seg_start.data_ptr(), leaf.data_ptr(),
-            found.data_ptr(), n, int(level), int(threshold), agg.data_ptr(),
-            _ext.stream_ptr(b),
+            found.data_ptr(), n, int(level), int(threshold),
+            scratch.data_ptr(), _ext.stream_ptr(b),
         )
     _ext.check(err, "leaf_update_pass")
     leaf_update_pass.launches += 1

@@ -1,0 +1,133 @@
+"""Inputs and device readings shared by chip_smoke.py, kernel_ab.py and the
+card tests (tests/test_torch_cuda.py): a node table of IEEE corner cases
+for the cull, and what torch.profiler sees of a call on the card.
+
+The profiler drops some or all of a session's device records now and then
+(it never adds any): records near either end of a session, in a process
+that has run for minutes (a K3 call's leading memset; late in
+chip_smoke.py, a lone K5 call's only kernel in five sessions of five,
+while sessions of five calls kept records).  So each session (`_session`)
+waits SETTLE_S and puts a short spin kernel on the card before its first
+call and after its last, and only the port's kernels (namespace pcv) and
+memsets are counted; `kernel_split` averages over the records it keeps
+and profiles again when it keeps none, and `device_ops` takes each name's
+most over several profiles and raises when none of them saw a kernel of
+the port.
+"""
+
+from __future__ import annotations
+
+import re
+import time
+
+import numpy as np
+
+# IEEE corner cases of a node table: signed zeros, subnormals, magnitudes
+# whose products and sums overflow, infinities and NaN.
+CULL_SPECIAL = np.array([0.0, -0.0, 1e-45, -1e-45, 1e-40, 1e38, -1e38, 3e38,
+                         -3e38, np.inf, -np.inf, np.nan], dtype=np.float32)
+# Seconds a profiler session waits, and clock cycles it spins the card
+# (~0.5 ms at the H100's 1.98 GHz boost clock), before its first call and
+# after its last.
+SETTLE_S = 0.1
+PAD_CYCLES = 1_000_000
+
+
+def adversarial_node_table(k: int, seed: int):
+    """A k-node cull table of IEEE corner cases beside ordinary cubes in
+    [0, 1024]^3: about a third of the coordinates and edges are taken from
+    CULL_SPECIAL, a sixth of the edges are negative, one node in 13 is
+    empty.  -> f32 mins (k, 3), f32 edges (k,), i32 num_points (k,)."""
+    rng = np.random.default_rng(seed)
+    mins = (rng.random((k, 3)) * 1024.0).astype(np.float32)
+    edges = (1024.0 / np.exp2(rng.integers(0, 8, k))).astype(np.float32)
+    odd = rng.random((k, 3)) < 0.3
+    mins[odd] = rng.choice(CULL_SPECIAL, int(odd.sum()))
+    odd = rng.random(k) < 0.3
+    edges[odd] = rng.choice(CULL_SPECIAL, int(odd.sum()))
+    flip = rng.random(k) < 0.17
+    edges[flip] = -edges[flip]
+    num_points = np.full(k, 10, dtype=np.int32)
+    num_points[::13] = 0
+    return mins, edges, num_points
+
+
+def kernel_name(key: str) -> str:
+    """A kernel's name without namespace, template arguments or
+    parameters."""
+    return re.sub(r"^(void )?pcv::\(anonymous namespace\)::", "",
+                  key).split("<")[0].split("(")[0]
+
+
+def _session(fn, calls: int):
+    """A torch.profiler session around `calls` calls of fn, padded on both
+    sides (SETTLE_S, PAD_CYCLES)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(SETTLE_S)
+        torch.cuda._sleep(PAD_CYCLES)
+        for _ in range(calls):
+            fn()
+        torch.cuda._sleep(PAD_CYCLES)
+        torch.cuda.synchronize()
+        time.sleep(SETTLE_S)
+    return prof
+
+
+def kernel_split(fn, reps: int = 5, tries: int = 3) -> dict:
+    """Device ms of each kernel of the port (namespace pcv) that fn launches
+    once a call, by name: the mean of its launches over `reps` calls after
+    a warm-up.  A profile that keeps no record of the port's kernels is
+    taken again, up to `tries` times; {} when none keeps one.  Kernels of
+    torch itself that fn runs (a clone for fresh state, say) are left
+    out."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        out = {}
+        for ev in _session(fn, reps).key_averages():
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = getattr(ev, "cuda_time_total", 0.0)
+            if us and ev.count and "pcv::" in ev.key:
+                name = kernel_name(ev.key)
+                out[name] = out.get(name, 0.0) + us / 1e3 / ev.count
+        if out:
+            return out
+    return {}
+
+
+def device_ops(fn, tries: int = 5) -> dict:
+    """{"kernels": [names], "memsets": count}: the port's kernels and the
+    memsets that one call of fn puts on the card, each name's most over
+    `tries` profiles of one call after a warm-up (so fn runs 1 + tries
+    times).  Raises RuntimeError when no profile saw a kernel of the
+    port."""
+    import torch
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    most = {}
+    for _ in range(tries):
+        counts = {}
+        for ev in _session(fn, 1).events():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            name = ("memset" if "memset" in ev.name.lower() else
+                    kernel_name(ev.name) if "pcv::" in ev.name else None)
+            if name:
+                counts[name] = counts.get(name, 0) + 1
+        for name, count in counts.items():
+            most[name] = max(most.get(name, 0), count)
+    memsets = most.pop("memset", 0)
+    if not most:
+        raise RuntimeError(f"no profile of {tries} saw a kernel of the port")
+    return {"kernels": sorted(name for name, count in most.items()
+                              for _ in range(count)),
+            "memsets": memsets}

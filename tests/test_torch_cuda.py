@@ -25,6 +25,10 @@ from point_cloud_viewer_tpu_torch.ops import level_cuda as LC
 from point_cloud_viewer_tpu_torch.ops import morton
 from point_cloud_viewer_tpu_torch.ops import scan_cuda as SC
 from point_cloud_viewer_tpu_torch.ops import tree_build as tb
+from point_cloud_viewer_tpu_torch.testing import (
+    adversarial_node_table,
+    device_ops,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -126,6 +130,75 @@ def test_seg_start_kernel_offsets_and_start_only(cuda, n, offset,
         for got in _on_both_streams(lambda: LC.seg_start_pass(b, level)):
             assert torch.equal(got, want), level
     assert LC.seg_start_pass.launches == before + 63
+
+
+def _at_offset(t, offset):
+    """A copy of t as a view `offset` elements into a fresh buffer (for
+    offsets 1-3 its base is not 16-B aligned)."""
+    buf = torch.empty(t.shape[0] + offset, dtype=t.dtype, device=t.device)
+    buf[offset:].copy_(t)
+    return buf[offset:]
+
+
+def _leaf_update_input(n, kind, device):
+    """(b, threshold): boundary levels of sorted codes; or the start-only
+    input (element 0 the only start, so every tile's look-back runs to the
+    sweep's first tile); or starts at elements 0 and n - 1 only, where every
+    row below n - 1 must carry n - 1 as its segment end across the tiles
+    (threshold n - 1 makes a lost carry, n, show; 1 when n = 1)."""
+    if kind == "codes":
+        return _sorted_bounds(n, n, device), 100
+    b = torch.full((n,), 22, dtype=torch.uint8, device=device)
+    b[:1].fill_(0)
+    if kind == "start only":
+        return b, n
+    b[n - 1:].fill_(0)
+    return b, max(n - 1, 1)
+
+
+@pytest.mark.parametrize("n", _TILE_SIZES)
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("kind", ["codes", "start only", "first and last"])
+def test_leaf_update_kernel_offsets_and_start_only(cuda, n, offset, kind):
+    """K3 at every level bit for bit (leaf and found, updated in place), all
+    four arrays at element offsets 0-3 (1-3: unaligned bases, the scalar
+    epilogue), on sorted codes, the start-only input and a start at each
+    end; twice in a row and on a second stream, each from fresh state."""
+    b, threshold = _leaf_update_input(n, kind, cuda)
+    bb = _at_offset(b, offset)
+    leaf = torch.full((n,), 21, dtype=torch.uint8, device=cuda)
+    found = torch.zeros(n, dtype=torch.uint8, device=cuda)
+    before = LC.leaf_update_pass.launches
+    for level in range(1, 22):
+        ss = _at_offset(LC.seg_start_pass_plain(b, level), offset)
+
+        def call():
+            lk, fk = _at_offset(leaf, offset), _at_offset(found, offset)
+            out = LC.leaf_update_pass(bb, ss, lk, fk, level, threshold)
+            assert out[0] is lk and out[1] is fk
+            return lk.clone(), fk.clone()
+
+        runs = _on_both_streams(call)
+        LC.leaf_update_pass_plain(b, ss, leaf, found, level, threshold)
+        for lk, fk in runs:
+            assert torch.equal(lk, leaf) and torch.equal(fk, found), level
+    assert LC.leaf_update_pass.launches == before + 63
+    if kind != "codes":  # every row is small at its threshold
+        assert bool(found.all())
+
+
+def test_leaf_update_is_one_memset_and_one_launch(cuda):
+    """K3 on the look-back: one memset of its scratch and one kernel a call
+    (the three-launch sweep it replaced is gone)."""
+    b = _sorted_bounds(1_000_003, 5, cuda)
+    ss = LC.seg_start_pass(b, 8)
+    leaf = torch.full_like(b, 21)
+    found = torch.zeros_like(b)
+    before = LC.leaf_update_pass.launches
+    ops = device_ops(lambda: LC.leaf_update_pass(b, ss, leaf, found, 8, 100),
+                     tries=5)
+    assert LC.leaf_update_pass.launches == before + 1 + 5
+    assert ops == {"kernels": ["lookback_scan"], "memsets": 1}, ops
 
 
 _PROMOTE_TILE = 8192  # csrc/promote.cu: kPromoteThreads x 32 rows
@@ -276,6 +349,52 @@ def test_cull_kernel_matches_plain(cuda, k, frames, a_cap):
             assert _same(g, w[f])
     if k > 1000:  # a strict subset of the nodes is visible
         assert 0 < int(got[1].sum()) < frames * k
+
+
+_INF = float("inf")
+
+
+def _cull_setup(kind, frames, a_cap):
+    """(F, ...) per-frame arrays: the orbit, an every-node-visible view of
+    the 100 m box, or frames whose axes are all inert ((-inf, inf))."""
+    if kind == "all visible":
+        frustums = [culling.Frustum.new(
+            culling.Isometry.from_axis_angle(
+                [0, 1, 0], 0.01 * i, translation=[50.0, 50.0, 700.0]),
+            culling.Perspective.from_fov(1.2, 1.0, 1.0, 10000.0))
+            for i in range(frames)]
+        return culling.prep_frustum_frames(frustums, a_cap)
+    mats, axs, qns, qxs = _cull_frames(frames, a_cap)[1]
+    if kind == "inert only":
+        qns[:], qxs[:] = -_INF, _INF
+    return mats, axs, qns, qxs
+
+
+@pytest.mark.parametrize("table", ["random", "adversarial"])
+@pytest.mark.parametrize("kind", ["orbit", "all visible", "inert only"])
+@pytest.mark.parametrize("frames", [1, 3])
+def test_cull_kernel_adversarial_and_inert_frames(cuda, table, kind, frames):
+    """K5 bit for bit (NaN matching NaN) on a table of IEEE corner cases and
+    on an ordinary one, for an orbit frame, an all-visible frame and a frame
+    whose axes are all inert; one frame as (4, 4) and F frames at once."""
+    make = adversarial_node_table if table == "adversarial" else _cull_table
+    mins, edges, num_points = make(20_000, seed=frames)
+    per_frame = [torch.from_numpy(a).to(cuda)
+                 for a in _cull_setup(kind, frames, 32)]
+    if frames == 1:
+        per_frame = [t[0] for t in per_frame]
+    nodes = [torch.from_numpy(a).to(cuda) for a in (mins, edges, num_points)]
+    before = CC.cull_lod.launches
+    got = CC.cull_lod(*per_frame, *nodes)
+    want = CC.cull_lod_plain(*per_frame, *nodes)
+    assert CC.cull_lod.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == want[0].shape and _same(g, w)
+    has_points = nodes[2] > 0
+    if kind == "inert only" or (kind == "all visible" and table == "random"):
+        assert torch.equal(got[1], has_points.expand_as(got[1]))
+    if table == "adversarial":
+        assert bool(got[0].isnan().any())
 
 
 def test_cull_kernel_nan_and_straddle_match_plain(cuda):

@@ -9,11 +9,19 @@ and priorities to rtol 1e-5, atol 1e-6 (f32, the einsum associates the
 projections differently), -inf wherever a node is not visible.  Orders
 are compared as priority sequences (ties may permute).  Within the port,
 multi-frame and single-frame results are bit-equal (tolerance 0).
+
+A PyTorch model of the CUDA kernel's rules (csrc/cull.cu: inert axes
+dropped, two extreme corners an axis with the 8-corner fallback, the
+screen size from shared products) is held to `cull_lod_plain` bit for bit
+(NaN matching NaN) under hypothesis, over IEEE corner cases; a model
+without the fallback fails.
 """
 
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax.numpy as jnp
 from point_cloud_viewer_tpu.math.geometry import Frustum, Isometry, Perspective
@@ -182,8 +190,140 @@ def test_pad_cull_axes_is_inert():
         *_t(m, axes, qmin, qmax, mins, edges, num_points))
     wide = culling.frustum_cull_lod_select(
         *_t(m, *padded, mins, edges, num_points))
-    for a, b in zip(plain, wide):
-        assert _same(a, b)
+    # Inert axes among the live ones, not only at the tail: zero axes and
+    # copies of live axes, both with a (-inf, inf) range (the kernel drops
+    # them wherever they stand).
+    rng = np.random.default_rng(21)
+    inert = np.concatenate([np.zeros((4, 3), np.float32),
+                            axes[rng.integers(0, len(axes), 4)]])
+    at = np.sort(rng.integers(0, len(axes) + 1, len(inert)))
+    mixed = (np.insert(axes, at, inert, axis=0),
+             np.insert(qmin, at, -np.inf).astype(np.float32),
+             np.insert(qmax, at, np.inf).astype(np.float32))
+    assert len(mixed[0]) == len(axes) + 8 and np.isinf(mixed[1]).sum() == 8
+    interleaved = culling.frustum_cull_lod_select(
+        *_t(m, *mixed, mins, edges, num_points))
+    for a, b, c in zip(plain, wide, interleaved):
+        assert _same(a, b) and _same(a, c)
+
+
+# --- a model of csrc/cull.cu's rules ---------------------------------------
+
+_INF = float("inf")
+
+
+def _model_cull(m, axes, qmin, qmax, mins, edges, num_points,
+                fallback=True):
+    """K5 as csrc/cull.cu computes it, on CPU tensors, one frame: the
+    frame's (-inf, inf) axes dropped; on each axis the projections of the
+    two extreme corners (the smaller and the larger term on each
+    coordinate, ordered by one `<`, so a NaN term lands in an extreme), and
+    all 8 corners with NaN-propagating min and max where an extreme is not
+    finite (skipped when `fallback` is False); the screen size from the 18
+    distinct products and the 12 distinct (x, y) partial sums.  Returns
+    (sizes, visible, priority)."""
+    lo = [mins[:, d] + 0.0 * edges for d in range(3)]
+    hi = [mins[:, d] + 1.0 * edges for d in range(3)]
+    separated = torch.zeros(edges.shape[0], dtype=torch.bool)
+    live = ~((qmin == -_INF) & (qmax == _INF))
+    for a in torch.nonzero(live).flatten().tolist():
+        u = axes[a]
+        ends = []
+        for d in range(3):
+            t0, t1 = lo[d] * u[d], hi[d] * u[d]
+            lt = t0 < t1
+            ends.append((torch.where(lt, t0, t1), torch.where(lt, t1, t0)))
+        p_min = (ends[0][0] + ends[1][0]) + ends[2][0]
+        p_max = (ends[0][1] + ends[1][1]) + ends[2][1]
+        sep = (p_min > qmax[a]) | (p_max < qmin[a])
+        if fallback:
+            b_lo = b_hi = None
+            for c in range(8):
+                x, y, z = (hi[d] if (c >> d) & 1 else lo[d] for d in range(3))
+                p = (x * u[0] + y * u[1]) + z * u[2]
+                b_lo = p if c == 0 else torch.minimum(b_lo, p)
+                b_hi = p if c == 0 else torch.maximum(b_hi, p)
+            finite = torch.isfinite(p_min) & torch.isfinite(p_max)
+            sep = torch.where(finite, sep, (b_lo > qmax[a]) | (b_hi < qmin[a]))
+        separated |= sep
+
+    def row_terms(r):
+        px = [lo[0] * m[r, 0], hi[0] * m[r, 0]]
+        py = [lo[1] * m[r, 1], hi[1] * m[r, 1]]
+        xy = [px[0] + py[0], px[1] + py[0], px[0] + py[1], px[1] + py[1]]
+        return xy, [lo[2] * m[r, 2], hi[2] * m[r, 2]]
+
+    terms = {r: row_terms(r) for r in (0, 1, 3)}
+    x_lo = x_hi = y_lo = y_hi = None
+    for c in range(8):
+        clip = {r: (xy[c & 3] + z[c >> 2]) + m[r, 3]
+                for r, (xy, z) in terms.items()}
+        px = (clip[0] / clip[3]).clamp(-1.0, 1.0)
+        py = (clip[1] / clip[3]).clamp(-1.0, 1.0)
+        if c == 0:
+            x_lo = x_hi = px
+            y_lo = y_hi = py
+        else:
+            x_lo, x_hi = torch.minimum(x_lo, px), torch.maximum(x_hi, px)
+            y_lo, y_hi = torch.minimum(y_lo, py), torch.maximum(y_hi, py)
+    sizes = (x_hi - x_lo) * (y_hi - y_lo)
+    visible = ~separated & (num_points > 0)
+    return sizes, visible, torch.where(visible, sizes, -_INF)
+
+
+def _model_agrees(args, fallback=True) -> bool:
+    """The model and cull_lod_plain on one frame: separated (every node
+    holds points, so visible = not separated), sizes and priorities bit for
+    bit, NaN matching NaN."""
+    got = _model_cull(*args, fallback=fallback)
+    want = cull_cuda.cull_lod_plain(*args)
+    return all(_same(g, w) for g, w in zip(got, want))
+
+
+# IEEE corner cases: signed zeros, subnormals, magnitudes whose products
+# or sums overflow, infinities and NaN.
+_SPECIAL = [0.0, -0.0, 1.0, -1.0, 0.5, -2.0, 1e-45, -1e-45, 1e-40, 1.2e-38,
+            1e19, 1e38, -1e38, 3e38, -3e38, _INF, -_INF, float("nan")]
+_F32 = st.one_of(st.sampled_from(_SPECIAL),
+                 st.floats(-1e3, 1e3, width=32),
+                 st.floats(width=32, allow_nan=True, allow_infinity=True))
+
+
+@settings(max_examples=300, deadline=None, derandomize=True)
+@given(data=st.data(), k=st.integers(1, 12), a=st.integers(0, 6))
+def test_cull_model_matches_plain(data, k, a):
+    """Nodes, axes (some inert, anywhere), query ranges and the matrix from
+    IEEE corner cases and ordinary values: negative edges, zero axis
+    components, overflow, NaN."""
+    def floats(*shape):
+        n = int(np.prod(shape))
+        vals = data.draw(st.lists(_F32, min_size=n, max_size=n))
+        return torch.tensor(vals, dtype=torch.float32).reshape(shape)
+
+    axes, qmin, qmax = floats(a, 3), floats(a), floats(a)
+    if a:
+        inert = torch.tensor(data.draw(st.lists(st.booleans(), min_size=a,
+                                                max_size=a)))
+        qmin[inert], qmax[inert] = -_INF, _INF
+    args = (floats(4, 4), axes, qmin, qmax, floats(k, 3), floats(k),
+            torch.ones(k, dtype=torch.int32))
+    assert _model_agrees(args)
+
+
+def test_cull_model_needs_the_fallback():
+    """Without the 8-corner fallback the two-corner rule is wrong: x1 = 3e38
+    + 3e38 overflows, so on an axis with ux = 0 one corner's term is inf * 0
+    = NaN.  The 8-corner min/max is NaN there and separates nothing; the
+    other extreme, 0, lies below qmin = 10 and would separate the node."""
+    m = torch.eye(4)
+    axes = torch.tensor([[0.0, -1.0, 0.0]])
+    qmin, qmax = torch.tensor([10.0]), torch.tensor([20.0])
+    mins = torch.tensor([[3e38, 0.0, 0.0], [0.0, 0.0, 0.0]])
+    edges = torch.tensor([3e38, 1.0])
+    args = (m, axes, qmin, qmax, mins, edges, torch.ones(2, dtype=torch.int32))
+    assert _model_agrees(args)
+    assert not _model_agrees(args, fallback=False)
+    assert cull_cuda.cull_lod_plain(*args)[1].tolist() == [True, False]
 
 
 def test_straddling_nodes_match_jax_nan_and_order():
