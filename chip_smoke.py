@@ -74,12 +74,29 @@ Phases (any failure raises and the exit code is non-zero):
                 byte-compared; per-bucket phase times, bytes up and down, the
                 bucket count, the streaming path's K1-K4 launches and the
                 share of the card's bucket time the host waited for;
+  9. deep + host (run after 7d, before 7c, which deletes phase 5's PLY)
+             -- a 16,000,000-point cloud in a 6.4e6 m root box at 1 mm
+                (total cap 33, sub-builds at depth 12): a Gaussian in one
+                level-21 cell (10M points: a fat cell derived on the card),
+                four fat cells of ~750,000 (native tree_levels) and a 1 km
+                site (no fat cell), in three level-2 buckets; built in core
+                on the card (build_octree's default), byte-compared with
+                the host route (use_device=False) and with its streamed
+                build on the card (B = 2); K1, K4's stage and K6's stage
+                launched once a device sub-build, K2, K3 and the one-level
+                K4 never; the 10M cell's grouped derivation at depth 12 on
+                the card against the same call on CPU tensors, output by
+                output, with its CUDA-event time; then phase 5's PLY
+                through cli.build_octree --no-use_device, byte-compared
+                with phase 5's card build; phase times and walls of every
+                build;
   8. probe + bounds -- K7 (copy, triad, add3) against its plain version
                 at 128,000,000 and ragged n, bit for bit; the streaming-
                 bandwidth probes (hbm_probes: add_1d, add_2d, copy, triad,
                 add3) and torch.add's time; then, for K1-K7, the least bytes
                 a launch moves, its launches per main-path call (16M
-                in-core build, streamed bucket, viewer frame), its bound
+                in-core build, streamed bucket, deep 16M build, viewer
+                frame), its bound
                 (bytes over the card's memory rate -- the larger of its
                 published peak and the measured probe rate -- or K5's f32
                 operations over the card's published f32 peak where
@@ -117,6 +134,9 @@ CORE_SIZES = (16_000_000, 64_000_000)  # phase 4: synthetic codes
 E2E_POINTS = 16_000_000              # phase 5: the README's in-core cloud
 BIG_POINTS = 64_000_000              # phase 7c: a ~2 GB PLY, streamed
 LEAF_MAX_POINTS = 100_000            # MAX_POINTS_PER_NODE
+DEEP_POINTS = (10_000_000, 3_000_000, 3_000_000)  # phase 9: see deep_cloud
+PLANET = 6.4e6                       # phase 9: root edge (tests/test_deep_build)
+DEEP_RESOLUTION = 0.001              # phase 9: 1 mm, total cap 33
 CULL_NODES = 1_048_576               # phase 6: bench.py's 1M-node tree
 CULL_BATCH = 64                      # phase 6a: bench.py's batched orbit
 VIEW_FRAMES = 60                     # phase 6b/c: cli.view's default orbit
@@ -1551,6 +1571,176 @@ def phase_streaming(wrappers: dict, tmp: str, ply16: str, incore16: str,
     return launches16, int(phases16["buckets_derived"])
 
 
+# --- phase 9: the deep build and the host route ---------------------------
+
+
+def deep_cloud(seed: int):
+    """DEEP_POINTS in the planet box, xyz f64, rgb u8, intensity f32, three
+    parts in three level-2 cells (buckets at B = 2): a Gaussian (sigma
+    0.25 m) centred in one level-21 cell and clipped into it (one fat cell,
+    derived on the card); a uniform 2 x 2 x 1 block of level-21 cells
+    (four fat cells of ~750,000, native tree_levels); a uniform 1 km x 1 km
+    x 20 m site (no fat cell).  -> (batch, the fat Gaussian cell's level-21
+    path)."""
+    from point_cloud_viewer_tpu_torch.core.points_batch import PointsBatch
+
+    rng = np.random.default_rng(seed)
+    e21 = PLANET / (1 << 21)
+    n_one, n_four, n_site = DEEP_POINTS
+    cell = np.array([100_000, 100_000, 100_000])
+    lo = cell * e21
+    one = np.clip(lo + e21 / 2 + rng.normal(0.0, 0.25, (n_one, 3)),
+                  lo + 1e-6, lo + e21 - 1e-6)
+    four = (np.array([700_000, 100_000, 100_000]) * e21
+            + rng.random((n_four, 3)) * (e21 * np.array([2.0, 2.0, 1.0])))
+    site = (np.array([100_000, 720_000, 100_000]) * e21
+            + rng.random((n_site, 3)) * np.array([1000.0, 1000.0, 20.0]))
+    n = sum(DEEP_POINTS)
+    batch = PointsBatch(position=np.concatenate([one, four, site]),
+                        attributes={
+                            "color": rng.integers(0, 256, (n, 3),
+                                                  dtype=np.uint8),
+                            "intensity": rng.random(n, dtype=np.float32)})
+    x, y, z = (int(c) for c in cell)
+    path = 0
+    for bit in range(20, -1, -1):  # Morton, x most significant
+        path = (path << 3) | (((x >> bit) & 1) << 2 | ((y >> bit) & 1) << 1
+                              | ((z >> bit) & 1))
+    return batch, path
+
+
+def check_deep_launches(where: str, launches: dict, subbuilds: int) -> None:
+    """A deep build launched K1, K4's stage and K6's stage once a device
+    sub-build, and none of OFF_PATH."""
+    want = {k: subbuilds for k in BUILD_PATH}
+    want.update({k: 0 for k in OFF_PATH})
+    if launches != want:
+        raise AssertionError(f"{where}: launches {launches}, want {want}")
+
+
+def phase_deep(wrappers: dict, tmp: str, ply16: str, incore16: str) -> dict:
+    """9: the deep cloud built in core on the card against the host route
+    (use_device=False) and against its streamed build on the card (B = 2),
+    byte for byte; the fat cell's sub-build (the grouped derivation at
+    depth 12) on the card against the same call on CPU tensors, output by
+    output; launches per build; then phase 5's PLY through cli.build_octree
+    --no-use_device against phase 5's card build.  Returns the in-core
+    deep build's launch counts."""
+    import torch
+
+    from point_cloud_viewer_tpu_torch.math.geometry import Aabb, Cube
+    from point_cloud_viewer_tpu_torch.octree import builder as B
+    from point_cloud_viewer_tpu_torch.octree.node_id import MAX_FORMAT_LEVEL
+    from point_cloud_viewer_tpu_torch.octree.streaming import (
+        build_octree_streaming,
+    )
+    from point_cloud_viewer_tpu_torch.ops import morton
+    from point_cloud_viewer_tpu_torch.ops import tree_build as tb
+
+    t0 = time.perf_counter()
+    batch, cell_path = deep_cloud(seed=9)
+    box = Aabb(np.zeros(3), np.full(3, PLANET))
+    root = Cube.bounding(box)
+    total_cap = B.compute_depth_cap(PLANET, DEEP_RESOLUTION,
+                                    max_level=MAX_FORMAT_LEVEL)
+    codes21, _ = morton.quantize_and_encode(batch.position, root.min,
+                                            root.edge_length, DEPTH)
+    cells, counts = np.unique(codes21, return_counts=True)
+    fat = counts[counts > LEAF_MAX_POINTS]
+    run = np.flatnonzero(codes21 == np.uint64(cell_path))
+    log(f"deep: {len(batch)} points in {time.perf_counter() - t0:.3f} s; "
+        f"total cap {total_cap}, sub-build depth {total_cap - DEPTH}; fat "
+        f"level-21 cells {sorted(fat.tolist(), reverse=True)}; the Gaussian "
+        f"cell holds {len(run)}")
+    if (total_cap != 33 or len(run) != DEEP_POINTS[0] or len(fat) != 5
+            or int((fat >= B._DEEP_DEVICE_MIN_N).sum()) != 1):
+        raise AssertionError("deep: the cloud is not one fat cell on the "
+                             "card's route and four on the native route")
+    del codes21
+
+    def build(label, fn, out, **kwargs):
+        for w in wrappers.values():
+            w.launches = 0
+        phases = {}
+        t0 = time.perf_counter()
+        result = fn(out, DEEP_RESOLUTION, batch, bounding_box=box,
+                    phase_times=phases, **kwargs)
+        wall = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+        log(f"deep {label}: wall {wall:.3f} s; {len(result.nodes)} nodes, "
+            f"depth cap {result.depth_cap}, deepest level "
+            f"{max(n.level for n, _ in result.nodes)}; phases (s) "
+            f"{json.dumps(phases)}; launches {json.dumps(launches)}")
+        if result.num_points != len(batch) or result.depth_cap != total_cap:
+            raise AssertionError(f"deep {label}: {result.num_points} points, "
+                                 f"depth cap {result.depth_cap}")
+        return phases, launches
+
+    card, host, streamed = (os.path.join(tmp, d) for d in
+                            ("deep_card", "deep_host", "deep_streamed"))
+    phases, launches = build("in core on the card", B.build_octree, card,
+                             device=DEVICE)
+    check_deep_launches("deep in core", launches,
+                        int(phases["deep_device_subbuilds"]))
+    if phases["deep_device_subbuilds"] != 1:
+        raise AssertionError("deep: expected one sub-build on the card")
+    build("host route", B.build_octree, host, use_device=False)
+    files = dirs_byte_equal(card, host)
+    log(f"deep: card in core == host route, {files} files byte-equal")
+    shutil.rmtree(host)
+    s_phases, s_launches = build(
+        "streamed on the card (B = 2)", build_octree_streaming, streamed,
+        bucket_levels=2, spill_directory=os.path.join(tmp, "deep_spill"),
+        device=DEVICE)
+    check_deep_launches("deep streamed", s_launches,
+                        int(s_phases["deep_device_subbuilds"]))
+    files = dirs_byte_equal(card, streamed)
+    log(f"deep: streamed on the card == in core, {files} files byte-equal")
+    shutil.rmtree(card)
+    shutil.rmtree(streamed)
+
+    # The fat cell's sub-build, card against CPU tensors; these launches
+    # are outside the builds' counts.
+    d2 = total_cap - DEPTH
+    sub_codes, out = B._dispatch_deep_device(
+        batch, run, cell_path, root, DEPTH, total_cap, torch.device(DEVICE))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, ref = B._dispatch_deep_device(batch, run, cell_path, root, DEPTH,
+                                     total_cap, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    checks = {name: torch.equal(got.cpu(), want) for name, got, want
+              in zip(tb.GroupedExchange._fields, out, ref)}
+    on_card = morton.codes_to_tensor(sub_codes, DEVICE)
+    derive_ms = cuda_ms(lambda: tb.build_tree_device_codes_grouped(
+        on_card, len(run), d2, d2, extras_cap=max(512, len(run) >> 6)))
+    upload_ms = cuda_ms(lambda: tb.tree_codes_grouped_on_device(
+        sub_codes, d2, d2, device=DEVICE))
+    log(f"deep sub-build ({len(run)} points, depth {d2}): card vs CPU route "
+        f"{checks}; extras_total {int(out.extras_total)}; level_counts "
+        f"{out.level_counts.tolist()}; derivation {derive_ms:.4f} ms on the "
+        f"card (codes resident; {upload_ms:.4f} ms with the pinned upload), "
+        f"CPU route {cpu_s:.3f} s (CUDA events, median of {REPS})")
+    if not all(checks.values()):
+        raise AssertionError(f"deep sub-build: card differs from CPU: "
+                             f"{checks}")
+    del out, ref, on_card, batch
+    torch.cuda.empty_cache()
+
+    host16 = os.path.join(tmp, "host16")
+    phases = {}
+    t0 = time.perf_counter()
+    said = run_cli([ply16, "--output_directory", host16, "--no-use_device"],
+                   phases)
+    wall = time.perf_counter() - t0
+    files = dirs_byte_equal(incore16, host16)
+    log(f"host route: cli --no-use_device on phase 5's PLY {wall:.3f} s; "
+        f"phases (s) {json.dumps(phases)}; == phase 5's card build, {files} "
+        f"files byte-equal; cli said: {said.strip().splitlines()[0]}")
+    shutil.rmtree(host16)
+    return launches
+
+
 # --- phase 8: K7, the probes, and every kernel's bound -------------------
 
 
@@ -1748,11 +1938,13 @@ def main() -> int:
         phase_promote(record)
         phase_device_times(record, cull_setups)
         del cull_setups
+        deep = phase_deep(build, tmp, ply, octree_dir)
         streamed, buckets = phase_streaming(build, tmp, ply, octree_dir,
                                             incore_wall)
         log(f"launches on the in-core path (phase 5) {json.dumps(incore)}; "
             f"on the streaming path (phase 7c, 16M, {buckets} buckets) "
-            f"{json.dumps(streamed)}; K5 in the viewer (phase 6c, "
+            f"{json.dumps(streamed)}; on the deep 16M build (phase 9) "
+            f"{json.dumps(deep)}; K5 in the viewer (phase 6c, "
             f"{VIEW_FRAMES} frames) {launches['K5']}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1773,6 +1965,7 @@ def main() -> int:
                          "K7": rec["lib"].get(PROBE_N)}.get(k)
     per_call = {k: {"in-core 16M build": incore.get(k, 0),
                     "streamed bucket": streamed.get(k, 0) / buckets,
+                    "deep 16M build": deep.get(k, 0),
                     "viewer frame": (launches["K5"] / VIEW_FRAMES
                                      if k == "K5" else 0)}
                 for k in kernels}

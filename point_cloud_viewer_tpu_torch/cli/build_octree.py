@@ -4,11 +4,12 @@ reference: src/bin/build_octree.rs).
 
 Usage: python -m point_cloud_viewer_tpu_torch.cli.build_octree INPUT.ply \
            --output_directory DIR [--device cuda] [--resolution 0.001] \
+           [--no-use_device] \
            [--streaming [--bucket_levels 2] [--spill_directory SPILL]]
 
-The tree derivation runs on --device (--use_device, the default): the
-in-core and the out-of-core (--streaming) routes are ported; --mesh and the
-host build (--no-use_device) exit with "not yet ported".
+The tree derivation runs on --device (--use_device, the default) or on the
+host (--no-use_device), in core or out of core (--streaming); --mesh exits
+with "not yet ported".
 """
 
 from __future__ import annotations
@@ -41,13 +42,14 @@ def main(argv=None, phase_times: Optional[dict] = None) -> int:
         "--use_device",
         action=argparse.BooleanOptionalAction,
         default=True,
-        help="Run the tree derivation on --device (the default; the host "
-        "build, --no-use_device, is not yet ported).",
+        help="Run the tree derivation on --device (the default); "
+        "--no-use_device builds on the host.",
     )
     parser.add_argument(
         "--device",
         default="cuda",
-        help="PyTorch device of the derivation: cuda (default) or cpu.",
+        help="PyTorch device of the derivation: cuda (default) or cpu "
+        "(unused with --no-use_device).",
     )
     parser.add_argument("--mesh", type=int, default=0, metavar="N",
                         help="Multi-device build (not yet ported).")
@@ -80,9 +82,6 @@ def main(argv=None, phase_times: Optional[dict] = None) -> int:
         parser.error("--spill_directory requires --streaming")
     if args.mesh:
         parser.error("--mesh: not yet ported, see ROADMAP")
-    if not args.use_device:
-        parser.error("the host build (--no-use_device) is not yet ported "
-                     "(see ROADMAP)")
     if args.num_threads is not None:
         if args.num_threads <= 0:
             parser.error("--num_threads must be positive")
@@ -102,7 +101,7 @@ def main(argv=None, phase_times: Optional[dict] = None) -> int:
             attributes=args.attributes,
             bucket_levels=args.bucket_levels,
             spill_directory=args.spill_directory,
-            use_device=True,
+            use_device=args.use_device,
             phase_times=times,
             device=args.device,
         )
@@ -114,7 +113,7 @@ def main(argv=None, phase_times: Optional[dict] = None) -> int:
             args.resolution,
             args.input,
             attributes=args.attributes,
-            use_device=True,
+            use_device=args.use_device,
             phase_times=times,
             device=args.device,
         )

@@ -80,7 +80,7 @@ def lib() -> Optional[ctypes.CDLL]:
             handle = ctypes.CDLL(_SO)
         except OSError:
             return None
-        if handle.pcv_native_abi_version() != 3:
+        if handle.pcv_native_abi_version() != 4:
             return None
         _configure(handle)
         _lib = handle
@@ -109,6 +109,10 @@ def _configure(h: ctypes.CDLL) -> None:
     h.counting_argsort_i64.argtypes = [
         POINTER(c_int64), c_int64, POINTER(c_int64), c_int64,
         POINTER(c_int64),
+    ]
+    h.tree_levels.argtypes = [
+        POINTER(c_uint64), c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, c_int64, POINTER(c_uint8), POINTER(c_uint8),
     ]
     h.cull_lod_select.argtypes = [
         POINTER(c_float), POINTER(c_float), POINTER(c_float), POINTER(c_float),
@@ -216,6 +220,30 @@ def quantize_morton(
         cells.ctypes.data_as(ctypes.c_void_p) if want_cells else None,
     )
     return codes, cells
+
+
+def tree_levels(
+    codes: np.ndarray, depth: int, max_split_level: int, max_points: int,
+    root_level: int = 0, stop_level: int = 0,
+) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """Per-point (leaf_level, final_level) over SORTED Morton codes — host
+    mirror of ops/tree_build.build_tree_device_codes; None if unavailable.
+    root_level/stop_level target subtree (out-of-core bucket) builds.
+    (Copied from point_cloud_viewer_tpu/native/__init__.py:272-293.)"""
+    h = lib()
+    if h is None:
+        return None
+    codes = np.ascontiguousarray(codes, dtype=np.uint64)
+    n = len(codes)
+    leaf = np.empty(n, dtype=np.uint8)
+    final = np.empty(n, dtype=np.uint8)
+    h.tree_levels(
+        _ptr(codes, ctypes.c_uint64), n, ctypes.c_int(depth),
+        ctypes.c_int(root_level), ctypes.c_int(stop_level),
+        ctypes.c_int(max_split_level), max_points,
+        _ptr(leaf, ctypes.c_uint8), _ptr(final, ctypes.c_uint8),
+    )
+    return leaf, final
 
 
 def cull_lod_select(

@@ -1,12 +1,13 @@
 // Host-side native kernels of point_cloud_viewer_tpu_torch: the port's copy
 // of point_cloud_viewer_tpu/native/pcv_native.cpp, unchanged in behaviour,
 // holding only the extern "C" functions the port calls (the position
-// decode, Morton encoding and the radix argsort, the builder's grouping and
+// decode, Morton encoding and the radix argsort, the host tree derivation
+// tree_levels (pcv_native.cpp:392-466: the host build route and the deep
+// build's smaller fat-cell sub-builds), the builder's grouping and
 // gathers, the host cull and the meta.pb fast parser).  Left out:
 // encode_positions_u8/u16 (the codec encodes in numpy, as ops/codec.py
-// does in the JAX package), decode_to_f32_relative (pcv_native.cpp:267-276,
-// the web viewer's wire decode) and tree_levels (:408-471, the host tree
-// derivation: the port derives the tree on the device, ops/tree_build.py).
+// does in the JAX package) and decode_to_f32_relative (pcv_native.cpp:
+// 267-276, the web viewer's wire decode).
 //
 // Built as a plain shared library with g++ (native/__init__.py); Python
 // binds via ctypes (no pybind11).
@@ -352,6 +353,87 @@ void gather_encode_f64(const double* pos, const int64_t* idx,
             out[3 * i + 1] = clamp01(e > 0.0 ? (p[1] - m1) / e : 0.0);
             out[3 * i + 2] = clamp01(e > 0.0 ? (p[2] - m2) / e : 0.0);
         }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Per-point tree level assignment over SORTED Morton codes — the host
+// mirror of ops/tree_build.build_tree_device (same leaf rule + LOD
+// promotion, so grouping/encoding downstream is shared):
+//   leaf[i]  = first level whose code-prefix segment holds <= max_points
+//              points (root never a leaf; capped at max_split_level)
+//   final[i] = leaf[i] after bottom-up promotion: per level, every 8th
+//              point (rank % 8 == 0) resident in a node moves to its parent
+//              (reference rule, src/octree/generation.rs:224-229).
+
+// root_level/stop_level generalize to SUBTREE builds (the out-of-core
+// bucket path): the DFS roots at the level-`root_level` node containing all
+// codes (treated as split unconditionally), and promotion stops at
+// `stop_level` — points accumulated there are the bucket residual the
+// caller's top pass continues from.  The whole-tree build is
+// root_level = stop_level = 0.
+void tree_levels(const uint64_t* codes, int64_t n, int depth, int root_level,
+                 int stop_level, int max_split_level, int64_t max_points,
+                 uint8_t* leaf_out, uint8_t* final_out) {
+    if (n == 0) return;
+    // blevel[i]: shallowest level whose prefix differs between codes[i-1]
+    // and codes[i]; segment of point i at level l starts at the nearest
+    // j <= i with blevel[j] <= l.  blevel[0] = 0.
+    std::vector<uint8_t> blevel(n);
+    blevel[0] = 0;
+    for (int64_t i = 1; i < n; ++i) {
+        const uint64_t x = codes[i - 1] ^ codes[i];
+        if (x == 0) {
+            blevel[i] = (uint8_t)(max_split_level + 1);
+        } else {
+            const int hb = 63 - __builtin_clzll(x);
+            const int l = depth - hb / 3;
+            blevel[i] = (uint8_t)(l < 0 ? 0 : l);
+        }
+    }
+
+    // Leaf assignment: DFS over splitting segments (root always splits).
+    struct Seg { int64_t s, e; int l; };
+    std::vector<Seg> stack;
+    stack.push_back({0, n, root_level});
+    std::vector<int64_t> level_count(max_split_level + 2, 0);
+    while (!stack.empty()) {
+        const Seg seg = stack.back();
+        stack.pop_back();
+        const int child_level = seg.l + 1;
+        int64_t a = seg.s;
+        for (int64_t i = seg.s + 1; i <= seg.e; ++i) {
+            if (i < seg.e && blevel[i] > child_level) continue;
+            const int64_t b = i;  // child segment [a, b)
+            const int64_t cnt = b - a;
+            if (cnt > max_points && child_level < max_split_level) {
+                stack.push_back({a, b, child_level});
+            } else {
+                std::memset(leaf_out + a, child_level, (size_t)cnt);
+                level_count[child_level] += cnt;
+            }
+            a = b;
+        }
+    }
+
+    // LOD promotion, deepest level first, stopping at stop_level.
+    std::memcpy(final_out, leaf_out, (size_t)n);
+    for (int l = max_split_level; l >= stop_level + 1; --l) {
+        if (level_count[l] == 0) continue;
+        int64_t rank = 0;
+        int64_t promoted = 0;
+        for (int64_t i = 0; i < n; ++i) {
+            if (blevel[i] <= l) rank = 0;
+            if (final_out[i] == (uint8_t)l) {
+                if (rank % 8 == 0) {
+                    final_out[i] = (uint8_t)(l - 1);
+                    ++promoted;
+                }
+                ++rank;
+            }
+        }
+        level_count[l] -= promoted;
+        level_count[l - 1] += promoted;
     }
 }
 
@@ -867,6 +949,6 @@ void counting_argsort_i64(const int64_t* ids, int64_t n,
     for (int64_t i = 0; i < n; ++i) order_out[pos[ids[i]]++] = i;
 }
 
-int pcv_native_abi_version() { return 3; }
+int pcv_native_abi_version() { return 4; }
 
 }  // extern "C"

@@ -1,7 +1,7 @@
 """In-core octree build with the tree derivation on a PyTorch device.
 
-Port of the `use_device` path of point_cloud_viewer_tpu/octree/builder.py
-(build_octree, builder.py:105-243).  The build runs in four steps:
+Port of point_cloud_viewer_tpu/octree/builder.py (build_octree,
+builder.py:105-304).  The device build runs in four steps:
 
 1. the host quantizes and Morton-encodes the points (ops/morton, native);
 2. it sends the 63-bit codes up as one int64 tensor;
@@ -11,17 +11,22 @@ Port of the `use_device` path of point_cloud_viewer_tpu/octree/builder.py
 4. the host groups the nodes, fixpoint-encodes them and writes the
    reference's on-disk format (meta.pb v13 + per-node files).
 
-The host helpers of steps 1 and 4 are copied below from the JAX package's
-builder, and the layers under them (core, io, protos, math, octree.node_id,
-ops.codec, native, utils.progress) are the port's own copies of the JAX
-package's modules.  Their behaviour is unchanged, so the bytes on disk are
-the JAX package's, byte for byte.
+Two more routes follow the JAX package's `else` branch (builder.py:244-
+289): the host build (`use_device=False`: native sort and tree_levels, or
+the numpy split discovery and subsampling without the native library), and
+deep builds past the 63-bit code budget (total cap > 21), whose fat
+level-21 cells are split by re-rooted sub-builds, on the device for cells
+of at least _DEEP_DEVICE_MIN_N points when `use_device` is set.
 
-The out-of-core build (octree/streaming.py) shares these helpers, plus the
-subtree grouping and bottom-up subsampling copied below for it.
+The host helpers are copied below from the JAX package's builder, and the
+layers under them (core, io, protos, math, octree.node_id, ops.codec,
+native, utils.progress) are the port's own copies of the JAX package's
+modules.  Their behaviour is unchanged, so the bytes on disk are the JAX
+package's, byte for byte.
 
-Not ported yet (see ROADMAP.md): the host build (`use_device=False`),
-deep builds past the 63-bit code budget, and multi-device (`mesh`) builds.
+The out-of-core build (octree/streaming.py) shares these helpers.
+
+Not ported yet (see ROADMAP.md): multi-device (`mesh`) builds.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from .. import native
-from ..core.constants import CURRENT_VERSION, META_FILENAME
+from ..core.constants import CURRENT_VERSION, MAX_POINTS_PER_NODE, META_FILENAME
 from ..core.points_batch import PointsBatch, as_points_batch
 from ..io.node_io import attempt_increasing_rlimit_to_max, write_node_files
 from ..math.geometry import Aabb, Cube
@@ -105,7 +110,12 @@ def compute_depth_cap(
     return depth
 
 
-# --- the device build (mirrors builder.py:105-243 and :291-304) ----------
+# --- the build (mirrors builder.py:105-304) -------------------------------
+
+
+def _add(phase_times: Optional[dict], key: str, value: float) -> None:
+    if phase_times is not None:
+        phase_times[key] = phase_times.get(key, 0.0) + value
 
 
 def build_octree(
@@ -130,21 +140,27 @@ def build_octree(
     after each phase.
     `use_device`: run the tree derivation (sort + leaf assignment + LOD
     promotion) on `device` ("cuda", or "cpu" for the kernels' plain
-    PyTorch versions); the only path ported so far (False raises).
-    `phase_times`: accumulates wall seconds per phase.
-    On-disk output is byte-identical to the JAX package's build."""
+    PyTorch versions); False is the host build (native tree_levels, or the
+    numpy pair without the native library), which ignores `device`.
+    `phase_times`: accumulates wall seconds per phase; deep builds add
+    `deep_device_subbuilds` (fat cells derived on `device`).
+    `mesh` (multi-device builds) is not ported yet and raises.
+
+    Deep builds (the resolution demands levels past 21, e.g. a
+    planet-extent cloud at mm resolution): level-21 cells still over
+    MAX_POINTS_PER_NODE are split by re-rooted sub-builds up to the
+    format's level 40 (_split_fat_leaves).  With `use_device` the top sort
+    and each fat cell of at least _DEEP_DEVICE_MIN_N points run on
+    `device`; smaller fat cells take native tree_levels, as in the JAX
+    package.  On-disk output is byte-identical to the JAX package's build."""
     from ..device import resolve_device
     from ..ops.tree_build import fetch_grouped, tree_codes_grouped_on_device
 
-    if not use_device:
-        raise NotImplementedError(
-            "host build (use_device=False) not yet ported, see ROADMAP"
-        )
     if mesh is not None:
         raise NotImplementedError(
             "multi-device (mesh) build not yet ported, see ROADMAP"
         )
-    dev = resolve_device(device)
+    dev = resolve_device(device) if use_device else None
 
     def phase(label):
         return timed_phase(
@@ -166,19 +182,6 @@ def build_octree(
     if bounding_box is None:
         bounding_box = Aabb.bounding_points(batch.position)
     root_cube = Cube.bounding(bounding_box)
-
-    depth_cap = 0
-    if n:
-        depth_cap = compute_depth_cap(
-            root_cube.edge_length, resolution, max_level=MAX_FORMAT_LEVEL
-        )
-        if depth_cap > morton.MAX_DEPTH:
-            # builder.py:174-180: past the 63-bit code budget the JAX
-            # package re-roots sub-builds per fat level-21 cell.
-            raise NotImplementedError(
-                f"deep build (depth cap {depth_cap} > {morton.MAX_DEPTH}) "
-                "not yet ported, see ROADMAP"
-            )
     os.makedirs(output_directory, exist_ok=True)
 
     if n == 0:
@@ -187,44 +190,402 @@ def build_octree(
             f.write(meta.encode())
         return BuildResult(output_directory, root_cube, resolution, bounding_box, [], 0)
 
-    # --- 1. Morton encode + the device derivation -----------------------
-    with phase("quantize+morton"):
-        codes_unsorted, _ = morton.quantize_and_encode(
-            batch.position, root_cube.min, root_cube.edge_length, depth_cap
-        )
-    with phase("device core"):
-        # 8 B/pt up (int64 codes), ~4 B/pt down via the GROUPED exchange
-        # (order2 sorted by (final level, code) + per-level counts +
-        # 1-point-leaf extras); the classic idx/final/leaf arrays stay on
-        # the device as the extras-overflow fallback (builder.py:205-232).
-        got = fetch_grouped(tree_codes_grouped_on_device(
-            codes_unsorted, depth_cap, depth_cap, device=dev
-        ))
-    with phase("group levels"):
-        if got.overflow:
-            order = got.idx
-            final_nodes = _group_device_levels(
-                codes_unsorted[order], got.final, got.leaf, depth_cap
-            )
-        else:
-            order = got.order2
-            final_nodes, _ = _group_subtree_levels_from_level_order(
-                codes_unsorted, order, got.level_counts, got.extras_idx,
-                got.extras_level, depth_cap, 0, include_root=True,
-            )
+    total_cap = compute_depth_cap(
+        root_cube.edge_length, resolution, max_level=MAX_FORMAT_LEVEL
+    )
+    depth_cap = min(total_cap, morton.MAX_DEPTH)
+    # builder.py:175-180: past the 63-bit code budget, level-21 cells still
+    # over MAX_POINTS_PER_NODE are split by re-rooted sub-builds.
+    deep = total_cap > depth_cap
 
-    # --- 2. encode + write -------------------------------------------------
+    if use_device and not deep:
+        # --- 1. Morton encode + the device derivation -------------------
+        with phase("quantize+morton"):
+            codes_unsorted, _ = morton.quantize_and_encode(
+                batch.position, root_cube.min, root_cube.edge_length, depth_cap
+            )
+        with phase("device core"):
+            # 8 B/pt up (int64 codes), ~4 B/pt down via the GROUPED exchange
+            # (order2 sorted by (final level, code) + per-level counts +
+            # 1-point-leaf extras); the classic idx/final/leaf arrays stay on
+            # the device as the extras-overflow fallback (builder.py:205-232).
+            got = fetch_grouped(tree_codes_grouped_on_device(
+                codes_unsorted, depth_cap, depth_cap, device=dev
+            ))
+        with phase("group levels"):
+            if got.overflow:
+                order = got.idx
+                final_nodes = _group_device_levels(
+                    codes_unsorted[order], got.final, got.leaf, depth_cap
+                )
+            else:
+                order = got.order2
+                final_nodes, _ = _group_subtree_levels_from_level_order(
+                    codes_unsorted, order, got.level_counts, got.extras_idx,
+                    got.extras_level, depth_cap, 0, include_root=True,
+                )
+    else:
+        with phase("quantize+morton"):
+            codes, _ = morton.quantize_and_encode(
+                batch.position, root_cube.min, root_cube.edge_length, depth_cap
+            )
+        with phase("sort"):
+            if use_device:
+                # Deep builds reach here with use_device set: the top sort
+                # runs on the device, and each large fat cell's subtree
+                # derivation too, inside _split_fat_leaves.
+                from ..ops.tree_build import argsort_codes_on_device
+
+                codes, order = argsort_codes_on_device(codes, dev)
+            else:
+                codes, order = morton.argsort_codes(codes)
+
+        deep_nodes: List[Tuple[NodeId, int]] = []
+        if deep:
+            # Split decisions in the top derivation come from the RAW counts
+            # (every ancestor of a fat cell splits), so the deep discover
+            # pass counts on the raw codes while slicing the reduced ones.
+            with phase("deep subtrees"):
+                raw_codes = codes
+                codes, order, deep_nodes = _split_fat_leaves(
+                    output_directory, codes, order, batch, root_cube,
+                    resolution, depth_cap, total_cap, device=dev,
+                    phase_times=phase_times,
+                )
+            with phase("discover+subsample"):
+                final_nodes = _subsample_bottom_up(
+                    _discover_levels_deep(
+                        codes, raw_codes, depth_cap, root_cube.edge_length,
+                        resolution,
+                    )
+                )
+        else:
+            # --- 2+3. leaf discovery + bottom-up LOD subsampling ----------
+            with phase("discover+subsample"):
+                final_nodes = _derive_final_nodes(
+                    codes, len(codes), depth_cap, root_cube.edge_length,
+                    resolution,
+                )
+
+    # --- 4. encode + write -------------------------------------------------
     with phase("encode+write"):
         nodes = _write_levels(
             output_directory, final_nodes, batch, order, root_cube, resolution
         )
+        if deep:
+            nodes.extend(deep_nodes)
 
     meta = _meta_proto(resolution, bounding_box, nodes)
     with open(os.path.join(output_directory, META_FILENAME), "wb") as f:
         f.write(meta.encode())
     return BuildResult(
-        output_directory, root_cube, resolution, bounding_box, nodes, depth_cap
+        output_directory, root_cube, resolution, bounding_box, nodes, total_cap
     )
+
+
+# --- deep builds (copied from point_cloud_viewer_tpu/octree/builder.py:417-
+# 692, without the mesh placement) ------------------------------------------
+
+
+# Device deep sub-builds only for cells at least this large (builder.py:
+# 417-420; the JAX package bounds its XLA compiles with it).  Smaller fat
+# cells take native tree_levels, as in the JAX package.
+_DEEP_DEVICE_MIN_N = 1_000_000
+
+
+def _split_fat_leaves(
+    directory: str,
+    codes: np.ndarray,
+    order: np.ndarray,
+    batch: PointsBatch,
+    root_cube: Cube,
+    resolution: float,
+    depth_cap: int,
+    total_cap: int,
+    device=None,
+    phase_times: Optional[dict] = None,
+) -> Tuple[np.ndarray, np.ndarray, List[Tuple[NodeId, int]]]:
+    """Deep-tree recursion: level-`depth_cap` cells holding more than
+    MAX_POINTS_PER_NODE points are split past the u64 code budget by
+    re-rooted sub-builds (fresh 63-bit code space inside the cell's cube —
+    the same per-node re-rooting the reference's recursive splitter does,
+    src/octree/generation.rs:152-193), down to `total_cap` <= 40.
+
+    Writes all nodes DEEPER than depth_cap and returns reduced
+    (codes, order) where each fat run is replaced by its sub-build residual
+    (always <= MAX_POINTS_PER_NODE points), so the standard top derivation
+    sees the cell as an ordinary leaf.  `device` (None: the host build)
+    takes the fat cells of at least _DEEP_DEVICE_MIN_N points."""
+    uniq, counts = _sorted_unique_counts(codes)
+    fat = counts > MAX_POINTS_PER_NODE
+    if not fat.any():
+        return codes, order, []
+    run_offsets = np.concatenate([[0], np.cumsum(counts)])
+    recorded: List[Tuple[NodeId, int]] = []
+    keep_codes: List[np.ndarray] = []
+    keep_order: List[np.ndarray] = []
+    prev_end = 0
+    for i in np.flatnonzero(fat):
+        s, e = int(run_offsets[i]), int(run_offsets[i + 1])
+        keep_codes.append(codes[prev_end:s])
+        keep_order.append(order[prev_end:s])
+        residual_order, nodes = _build_deep_subtree(
+            directory, batch, order[s:e], int(uniq[i]), root_cube,
+            resolution, depth_cap, total_cap, device=device,
+            phase_times=phase_times,
+        )
+        recorded.extend(nodes)
+        keep_codes.append(np.full(len(residual_order), uniq[i], dtype=np.uint64))
+        keep_order.append(residual_order)
+        prev_end = e
+    keep_codes.append(codes[prev_end:])
+    keep_order.append(order[prev_end:])
+    return np.concatenate(keep_codes), np.concatenate(keep_order), recorded
+
+
+def _dispatch_deep_device(
+    batch: PointsBatch,
+    run_order: np.ndarray,
+    cell_path: int,
+    root_cube: Cube,
+    depth_cap: int,
+    total_cap: int,
+    device,
+):
+    """Encode one fat cell's points in its re-rooted 63-bit code space and
+    launch its grouped subtree derivation on `device`'s current stream;
+    returns at once (sub_codes, the device GroupedExchange)."""
+    from ..ops.tree_build import tree_codes_grouped_on_device
+
+    cube = NodeId.from_level_index(depth_cap, cell_path).find_bounding_cube(
+        root_cube
+    )
+    d2 = total_cap - depth_cap
+    sub_codes, _ = morton.quantize_and_encode(
+        batch.position[run_order], cube.min, cube.edge_length, d2
+    )
+    return sub_codes, tree_codes_grouped_on_device(
+        sub_codes, d2, d2, device=device
+    )
+
+
+def _build_deep_subtree(
+    directory: str,
+    batch: PointsBatch,
+    run_order: np.ndarray,
+    cell_path: int,
+    root_cube: Cube,
+    resolution: float,
+    depth_cap: int,
+    total_cap: int,
+    device=None,
+    phase_times: Optional[dict] = None,
+) -> Tuple[np.ndarray, List[Tuple[NodeId, int]]]:
+    """Build the subtree under one fat level-`depth_cap` cell: a standard
+    sort-based build re-rooted at the cell's cube (sub-depth
+    total_cap - depth_cap <= 19, so one recursion level reaches the
+    format's level-40 capacity).  `run_order` indexes the original batch in
+    globally-sorted order (all points share the cell's code, so ties keep
+    original order).  Returns (residual order — the cell's post-subtree
+    content — and the recorded deep nodes).
+
+    A cell of at least _DEEP_DEVICE_MIN_N points with a `device` is derived
+    there (the grouped exchange, or the classic arrays on extras overflow);
+    a smaller one by native tree_levels, or the numpy pair without the
+    native library.  All routes write the same bytes."""
+    from ..ops.tree_build import fetch_grouped
+
+    node_id = NodeId.from_level_index(depth_cap, cell_path)
+    cube = node_id.find_bounding_cube(root_cube)
+    d2 = total_cap - depth_cap
+    if not 1 <= d2 <= morton.MAX_DEPTH:
+        raise ValueError(f"sub-build depth {d2} outside [1, {morton.MAX_DEPTH}]")
+
+    if device is not None and len(run_order) >= _DEEP_DEVICE_MIN_N:
+        sub_codes, out = _dispatch_deep_device(
+            batch, run_order, cell_path, root_cube, depth_cap, total_cap,
+            device,
+        )
+        got = fetch_grouped(out)
+        _add(phase_times, "deep_device_subbuilds", 1)
+        if got.overflow:
+            o = got.idx
+            final_nodes, residual_idx = _group_subtree_levels(
+                sub_codes[o], got.final, got.leaf, d2, 0,
+            )
+        else:
+            o = got.order2
+            final_nodes, residual_idx = _group_subtree_levels_from_level_order(
+                sub_codes, o, got.level_counts, got.extras_idx,
+                got.extras_level, d2, 0,
+            )
+        sub_order = run_order[o]
+    else:
+        sub_codes, _ = morton.quantize_and_encode(
+            batch.position[run_order], cube.min, cube.edge_length, d2
+        )
+        sub_codes, sub_sort = morton.argsort_codes(sub_codes)
+        sub_order = run_order[sub_sort]
+        out = native.tree_levels(sub_codes, d2, d2, MAX_POINTS_PER_NODE)
+        if out is not None:
+            leaf_lv, final_lv = out
+            final_nodes, residual_idx = _group_subtree_levels(
+                sub_codes, final_lv, leaf_lv, d2, 0
+            )
+        else:
+            levels = _discover_levels(
+                sub_codes, len(sub_codes), d2, cube.edge_length, resolution
+            )
+            final_nodes = _subsample_bottom_up(levels)
+            residual_idx = (
+                final_nodes.pop(0).idx if 0 in final_nodes
+                else np.empty(0, dtype=np.int64)
+            )
+    nodes = _write_levels(
+        directory, final_nodes, batch, sub_order, cube, resolution,
+        prefix=node_id,
+    )
+    return sub_order[residual_idx], nodes
+
+
+def _discover_levels_deep(
+    codes: np.ndarray,
+    raw_codes: np.ndarray,
+    depth_cap: int,
+    root_edge: float,
+    resolution: float,
+) -> Dict[int, _LevelNodes]:
+    """_discover_levels for the deep-tree top pass: point lists come from
+    the REDUCED codes (fat runs replaced by their sub-build residuals) but
+    split decisions come from the RAW counts — an ancestor of a fat cell
+    must split even when its residual content is small, exactly as a flat
+    120-bit derivation would decide."""
+    leaf_acc: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+    split_paths = np.zeros(1, dtype=np.uint64)
+    split_ends = np.full(1, len(codes), dtype=np.int64)
+
+    for level in range(1, depth_cap + 1):
+        k = len(split_paths)
+        shift = np.uint64(3 * (depth_cap - level))
+        child_paths = (split_paths[:, None] << np.uint64(3)) | np.arange(8, dtype=np.uint64)
+        bounds = child_paths << shift
+        upper = bounds + (np.uint64(1) << shift)
+        starts = np.searchsorted(codes, bounds.ravel(), side="left").astype(np.int64)
+        ends = np.concatenate(
+            [starts.reshape(k, 8)[:, 1:], split_ends[:, None]], axis=1
+        ).ravel()
+        raw_counts = (
+            np.searchsorted(raw_codes, upper.ravel(), side="left")
+            - np.searchsorted(raw_codes, bounds.ravel(), side="left")
+        )
+        nonempty = raw_counts > 0
+
+        edge = root_edge / (1 << level)
+        can_split = level < depth_cap and edge > resolution
+        if can_split:
+            is_leaf = nonempty & (raw_counts <= MAX_POINTS_PER_NODE)
+        else:
+            is_leaf = nonempty
+
+        if is_leaf.any():
+            leaf_acc[level] = (
+                child_paths.ravel()[is_leaf],
+                np.stack([starts[is_leaf], ends[is_leaf]], axis=1),
+            )
+
+        splitting = nonempty & ~is_leaf
+        split_paths = child_paths.ravel()[splitting]
+        split_ends = ends[splitting]
+        if len(split_paths) == 0:
+            break
+
+    out: Dict[int, _LevelNodes] = {}
+    for level, (paths, ranges) in leaf_acc.items():
+        counts = ranges[:, 1] - ranges[:, 0]
+        offsets = np.concatenate([[0], np.cumsum(counts)])
+        out[level] = _LevelNodes(
+            paths=paths, offsets=offsets, idx=_ranges_to_indices(ranges)
+        )
+    return out
+
+
+# --- the host derivation (copied from point_cloud_viewer_tpu/octree/
+# builder.py:695-773) ----------------------------------------------------------
+
+
+def _derive_final_nodes(
+    codes: np.ndarray,
+    n: int,
+    depth_cap: int,
+    root_edge: float,
+    resolution: float,
+) -> Dict[int, _LevelNodes]:
+    """Sorted codes -> final per-level node lists (leaf assignment + LOD
+    promotion).  Large inputs use the native per-point kernel (the host
+    mirror of the device derivation — same rules, same output); fallback
+    is the vectorized-numpy top-down/bottom-up pair."""
+    if n >= 100_000:
+        out = native.tree_levels(codes, depth_cap, depth_cap, MAX_POINTS_PER_NODE)
+        if out is not None:
+            leaf, final = out
+            return _group_device_levels(codes, final, leaf, depth_cap)
+    levels = _discover_levels(codes, n, depth_cap, root_edge, resolution)
+    return _subsample_bottom_up(levels)
+
+
+def _discover_levels(
+    codes: np.ndarray,
+    n: int,
+    depth_cap: int,
+    root_edge: float,
+    resolution: float,
+) -> Dict[int, _LevelNodes]:
+    """Walk levels top-down over the sorted codes; returns, per level, the
+    leaf nodes created there (interior nodes enter later via subsampling).
+    The root (level 0) is always split."""
+    split_paths = np.zeros(1, dtype=np.uint64)
+    split_ends = np.full(1, n, dtype=np.int64)
+    leaf_acc: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+
+    for level in range(1, depth_cap + 1):
+        k = len(split_paths)
+        shift = np.uint64(3 * (depth_cap - level))
+        child_paths = (split_paths[:, None] << np.uint64(3)) | np.arange(8, dtype=np.uint64)
+        bounds = child_paths << shift  # first code of each child cell
+        starts = np.searchsorted(codes, bounds.ravel(), side="left").astype(np.int64)
+        ends = np.concatenate(
+            [starts.reshape(k, 8)[:, 1:], split_ends[:, None]], axis=1
+        ).ravel()
+        counts = ends - starts
+        nonempty = counts > 0
+
+        edge = root_edge / (1 << level)
+        can_split = level < depth_cap and edge > resolution
+        if can_split:
+            is_leaf = nonempty & (counts <= MAX_POINTS_PER_NODE)
+        else:
+            is_leaf = nonempty
+
+        if is_leaf.any():
+            leaf_acc[level] = (
+                child_paths.ravel()[is_leaf],
+                np.stack([starts[is_leaf], ends[is_leaf]], axis=1),
+            )
+
+        splitting = nonempty & ~is_leaf
+        split_paths = child_paths.ravel()[splitting]
+        split_ends = ends[splitting]
+        if len(split_paths) == 0:
+            break
+
+    out: Dict[int, _LevelNodes] = {}
+    for level, (paths, ranges) in leaf_acc.items():
+        counts = ranges[:, 1] - ranges[:, 0]
+        offsets = np.concatenate([[0], np.cumsum(counts)])
+        out[level] = _LevelNodes(
+            paths=paths, offsets=offsets, idx=_ranges_to_indices(ranges)
+        )
+    return out
 
 
 # --- copied from point_cloud_viewer_tpu/octree/builder.py:776-862 ---------
@@ -580,6 +941,7 @@ def _write_levels(
     order: np.ndarray,
     root_cube: Cube,
     resolution: float,
+    prefix: Optional[NodeId] = None,
 ) -> List[Tuple[NodeId, int]]:
     """Encode per level (one encoding per level) and write node files.
 
@@ -588,8 +950,12 @@ def _write_levels(
     encode run fused in one native pass per chunk (no materialized
     per-point min/edge arrays); encoding is chunked over groups of whole
     nodes so peak scratch memory stays bounded regardless of cloud size.
-    (The JAX writer's `prefix` argument serves deep builds, which are not
-    ported yet.)"""
+
+    With `prefix`, levels/paths are RELATIVE to that node: `root_cube` must
+    be the prefix node's own cube, and written ids become global
+    (prefix.level + level) — the deep-subtree writer for trees past the
+    u64 code budget (cube subdivision and per-level encodings stay exact:
+    both are powers-of-two divisions of the same f64 root edge)."""
     # Node-file write parallelism (IO-bound): PCV_WRITE_THREADS overrides —
     # the analogue of the reference CLI's --num_threads rayon pool size
     # ("set as high as possible for SSDs", src/bin/build_octree.rs:36-38).
@@ -603,7 +969,7 @@ def _write_levels(
     try:
         return _write_levels_pooled(
             pool, directory, batch, order, final_nodes, root_cube,
-            resolution,
+            resolution, prefix,
         )
     finally:
         # An encode/IO error (e.g. ENOSPC from f.result()) must not leak
@@ -612,7 +978,7 @@ def _write_levels(
 
 
 def _write_levels_pooled(
-    pool, directory, batch, order, final_nodes, root_cube, resolution,
+    pool, directory, batch, order, final_nodes, root_cube, resolution, prefix,
 ):
     recorded: List[Tuple[NodeId, int]] = []
     order = np.asarray(order, dtype=np.int64)
@@ -659,7 +1025,13 @@ def _write_levels_pooled(
                 attrs[name] = arr[global_idx] if taken is None else taken
             chunk_futures = []
             for i in range(node_start, node_end):
-                node_id = NodeId.from_level_index(level, int(nodes.paths[i]))
+                if prefix is not None:
+                    node_id = NodeId.from_level_index(
+                        prefix.level + level,
+                        (prefix.index << (3 * level)) | int(nodes.paths[i]),
+                    )
+                else:
+                    node_id = NodeId.from_level_index(level, int(nodes.paths[i]))
                 a, b = int(nodes.offsets[i]) - lo, int(nodes.offsets[i + 1]) - lo
                 recorded.append((node_id, b - a))
                 chunk_futures.append(

@@ -43,6 +43,20 @@ class NodeId:
             return "r"
         return "r" + format(self.index, "o").zfill(self.level)
 
+    def find_bounding_cube(self, root: Cube) -> Cube:
+        """Descend from the root cube along the path; floating-point
+        semantics match the reference (min += bit * halved_edge at each
+        level — src/octree/node.rs:157-172).  (node_id.py:85-98.)"""
+        edge = root.edge_length
+        mn = root.min.copy()
+        for level in range(self.level - 1, -1, -1):
+            edge /= 2.0
+            child = (self.value >> (3 * level)) & 7
+            mn = mn + edge * np.array(
+                [(child >> 2) & 1, (child >> 1) & 1, child & 1], dtype=np.float64
+            )
+        return Cube(mn, edge)
+
 
 # ---------------------------------------------------------------------------
 # Vectorized (array) forms.  Single-word u64 paths cover levels <= 21 (the

@@ -1,16 +1,17 @@
 """Out-of-core octree build on a PyTorch device: clouds larger than RAM.
 
-Port of point_cloud_viewer_tpu/octree/streaming.py (its `use_device`
-route).  The in-core build needs ~90 bytes/point of headroom; this module
-bounds memory by an external Morton bucket partition:
+Port of point_cloud_viewer_tpu/octree/streaming.py.  The in-core build
+needs ~90 bytes/point of headroom; this module bounds memory by an
+external Morton bucket partition:
 
 1. PASS 1 streams the input once for the bounding box;
 2. PASS 2 streams batches, Morton-encodes them and spills each point to
    one of 8^B bucket files by its code's top 3B bits (buckets are level-B
    subtrees, so no tree work crosses a bucket);
-3. each bucket is loaded, its subtree is derived on the device rooted at
-   the bucket's level-B node, and everything below level B is written; the
-   bucket root's residual (what survives promotion into it) is kept;
+3. each bucket is loaded, its subtree is derived (on the device with
+   `use_device`) rooted at the bucket's level-B node, and everything below
+   level B is written; the bucket root's residual (what survives promotion
+   into it) is kept;
 4. the shallow top (levels <= B) is finished on the host from the
    residuals.
 
@@ -29,8 +30,12 @@ written and the checkpoint order are those of the sequential order.
 `phase_times` keeps the JAX package's keys, plus `buckets_derived`,
 `bucket_device_wait` and (CUDA) `bucket_device_busy`.
 
-Not ported yet (see ROADMAP.md): the host build (`use_device=False`) and
-deep builds past the 63-bit code budget; both raise NotImplementedError.
+Two routes run the buckets one after another, as in the JAX package
+(streaming.py:379, 523-628): the host build (`use_device=False`: native
+tree_levels, or the numpy split discovery without the native library) and
+deep builds past the 63-bit code budget, whose buckets sort on the device
+with `use_device` and split their fat level-21 cells by re-rooted
+sub-builds (builder._split_fat_leaves).
 """
 
 from __future__ import annotations
@@ -55,11 +60,13 @@ from ..utils.progress import timed_phase as _timed_phase
 from .node_id import MAX_FORMAT_LEVEL, NodeId
 from .builder import (
     BuildResult,
+    _add,
     _group_subtree_levels,
     _group_subtree_levels_from_level_order,
     _LevelNodes,
     _meta_proto,
     _ranges_to_indices,
+    _split_fat_leaves,
     _subsample_bottom_up,
     _write_levels,
     compute_depth_cap,
@@ -73,11 +80,6 @@ def _iter_batches(data) -> Iterator[PointsBatch]:
     else:
         for b in data:
             yield as_points_batch(b)
-
-
-def _add(phase_times: Optional[dict], key: str, value: float) -> None:
-    if phase_times is not None:
-        phase_times[key] = phase_times.get(key, 0.0) + value
 
 
 # --- copied from point_cloud_viewer_tpu/octree/streaming.py:60-148 --------
@@ -197,17 +199,16 @@ def build_octree_streaming(
 
     `use_device`: each bucket's subtree derivation (sort + leaf assignment
     + LOD promotion) runs on `device` ("cuda", or "cpu" for the kernels'
-    plain PyTorch versions); the only route ported so far (False raises).
-    Codes go up at 8 B/pt; the grouped exchange comes down at ~4 B/pt.
+    plain PyTorch versions); codes go up at 8 B/pt, the grouped exchange
+    comes down at ~4 B/pt.  In a deep build (total cap > 21) the device
+    sorts each bucket and derives its fat cells of at least
+    builder._DEEP_DEVICE_MIN_N points.  False is the host build, which
+    ignores `device`.
     `phase_times` accumulates wall seconds per phase and the bytes moved
     (`bucket_upload_bytes`, `bucket_fetch_bytes`)."""
     from ..device import resolve_device
 
-    if not use_device:
-        raise NotImplementedError(
-            "host build (use_device=False) not yet ported, see ROADMAP"
-        )
-    dev = resolve_device(device)
+    dev = resolve_device(device) if use_device else None
     attempt_increasing_rlimit_to_max()
     os.makedirs(output_directory, exist_ok=True)
 
@@ -246,17 +247,13 @@ def build_octree_streaming(
                 bounding_box = Aabb.zero()
     root_cube = Cube.bounding(bounding_box)
 
+    # total_cap past the u64 budget (21) = a deep build: fat level-21
+    # cells are split further inside each bucket subtree by re-rooted
+    # sub-builds, exactly as the in-core builder does (_split_fat_leaves).
     total_cap = compute_depth_cap(
         root_cube.edge_length, resolution, max_level=MAX_FORMAT_LEVEL
     )
-    if total_cap > morton.MAX_DEPTH:
-        # streaming.py:226-233, 551-596: past the 63-bit code budget the
-        # JAX package splits fat level-21 cells by re-rooted sub-builds.
-        raise NotImplementedError(
-            f"deep build (depth cap {total_cap} > {morton.MAX_DEPTH}) "
-            "not yet ported, see ROADMAP"
-        )
-    depth_cap = total_cap
+    depth_cap = min(total_cap, morton.MAX_DEPTH)
     b_levels = min(bucket_levels, depth_cap - 1)
     num_buckets = 8**b_levels
 
@@ -276,9 +273,14 @@ def build_octree_streaming(
         except (json.JSONDecodeError, OSError):
             marker = {}  # truncated by a crash mid-write: clean slate below
         marker_params = marker.get("params")
-        if isinstance(marker_params, dict) and "total_cap" not in marker_params:
-            # Checkpoint written before total_cap existed: such builds were
-            # always non-deep (total_cap == depth_cap), as every build here.
+        if (
+            isinstance(marker_params, dict)
+            and "total_cap" not in marker_params
+            and params["total_cap"] == params["depth_cap"]
+        ):
+            # Checkpoint written before total_cap existed: such builds
+            # were always non-deep (total_cap == depth_cap), so a legacy
+            # marker whose other params match is the SAME build.
             marker_params = {**marker_params, "total_cap": params["depth_cap"]}
         if marker_params == params:
             # Resume: the spill pass already completed for this exact build.
@@ -385,8 +387,12 @@ def build_octree_streaming(
             os.replace(tmp, dj)  # json presence = record complete
         spill.delete(bkt)
 
-    # One stream for every bucket's upload + derivation; None on the CPU.
-    stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    # Device pipelining (non-deep builds, streaming.py:374-379): one
+    # bucket's derivation in flight ahead of the bucket being finished, on
+    # one stream for every bucket's upload + derivation (None on the CPU).
+    pipeline_device = use_device and total_cap == depth_cap
+    stream = (torch.cuda.Stream(dev)
+              if pipeline_device and dev.type == "cuda" else None)
     inflight: List[Tuple[int, PointsBatch, tuple]] = []
 
     def _complete_oldest() -> None:
@@ -440,13 +446,20 @@ def build_octree_streaming(
 
         with _timed_phase(phase_times, "bucket_load"):
             bucket_batch = spill.load(bucket)
-        state = _dispatch_device_bucket(
-            bucket_batch, root_cube, depth_cap, b_levels, phase_times, dev,
-            stream,
+        if pipeline_device:
+            state = _dispatch_device_bucket(
+                bucket_batch, root_cube, depth_cap, b_levels, phase_times,
+                dev, stream,
+            )
+            inflight.append((bucket, bucket_batch, state))
+            if len(inflight) > 1:
+                _complete_oldest()
+            continue
+        residual, nodes = _build_bucket_subtree(
+            output_directory, bucket_batch, bucket, b_levels, root_cube,
+            resolution, depth_cap, total_cap, dev, phase_times,
         )
-        inflight.append((bucket, bucket_batch, state))
-        if len(inflight) > 1:
-            _complete_oldest()
+        _record_bucket(bucket, residual, nodes)
     while inflight:
         _complete_oldest()
 
@@ -510,6 +523,99 @@ def top_structure(
         split[lvl] = children[nonempty & ~is_leaf]
     split_b = set(int(p) for p in split.get(b_levels, []))
     return top_leaf_of_bucket, split_b
+
+
+# --- the sequential bucket (mirrors streaming.py:523-628) -----------------
+
+
+def _build_bucket_subtree(
+    output_directory: str,
+    batch: PointsBatch,
+    bucket_path: int,
+    bucket_level: int,
+    root_cube: Cube,
+    resolution: float,
+    depth_cap: int,
+    total_cap: int,
+    device: Optional[torch.device],
+    phase_times: Optional[dict],
+) -> Tuple[PointsBatch, List[Tuple[NodeId, int]]]:
+    """Build the subtree under one level-B node of a host or deep build:
+    writes all nodes at levels > B, returns the bucket node's residual
+    points (its post-promotion content, NOT yet written — the top pass
+    promotes out of it).
+
+    `device` (None: the host build) sorts the bucket; total_cap >
+    depth_cap marks a DEEP build: fat level-depth_cap cells inside this
+    bucket are split by re-rooted sub-builds (builder._split_fat_leaves,
+    on `device` for cells of at least _DEEP_DEVICE_MIN_N points) and the
+    bucket derivation then splits by the RAW counts while slicing the
+    reduced arrays, exactly like the in-core deep path."""
+    from ..ops.tree_build import argsort_codes_on_device
+
+    n = len(batch)
+    with _timed_phase(phase_times, "bucket_quantize"):
+        codes, _ = morton.quantize_and_encode(
+            batch.position, root_cube.min, root_cube.edge_length, depth_cap
+        )
+    with _timed_phase(phase_times, "bucket_sort"):
+        if device is not None:
+            codes, order = argsort_codes_on_device(codes, device)
+        else:
+            codes, order = morton.argsort_codes(codes)
+
+    if total_cap > depth_cap:
+        raw_codes = codes
+        codes, order, deep_nodes = _split_fat_leaves(
+            output_directory, codes, order, batch, root_cube, resolution,
+            depth_cap, total_cap, device=device, phase_times=phase_times,
+        )
+        levels = _discover_subtree_levels(
+            codes, len(codes), depth_cap, root_cube.edge_length, resolution,
+            bucket_path, bucket_level, raw_codes=raw_codes,
+        )
+        final_nodes = _subsample_bottom_up(levels, stop_level=bucket_level)
+        residual_idx = (
+            final_nodes.pop(bucket_level).idx
+            if bucket_level in final_nodes
+            else np.empty(0, dtype=np.int64)
+        )
+        nodes = _write_levels(
+            output_directory, final_nodes, batch, order, root_cube,
+            resolution,
+        )
+        nodes.extend(deep_nodes)
+        return batch.take(order[residual_idx]), nodes
+
+    with _timed_phase(phase_times, "bucket_derive"):
+        out = native.tree_levels(
+            codes, depth_cap, depth_cap, MAX_POINTS_PER_NODE,
+            root_level=bucket_level, stop_level=bucket_level,
+        )
+        if out is not None:
+            leaf_lv, final_lv = out
+            final_nodes, residual_idx = _group_subtree_levels(
+                codes, final_lv, leaf_lv, depth_cap, bucket_level
+            )
+        else:
+            # Discover splits INSIDE the bucket: start from the bucket node
+            # itself; promotion stops AT the bucket level, whose
+            # accumulated (pre-promotion) list is the residual.
+            levels = _discover_subtree_levels(
+                codes, n, depth_cap, root_cube.edge_length, resolution,
+                bucket_path, bucket_level,
+            )
+            final_nodes = _subsample_bottom_up(levels, stop_level=bucket_level)
+            residual_idx = (
+                final_nodes.pop(bucket_level).idx
+                if bucket_level in final_nodes
+                else np.empty(0, dtype=np.int64)
+            )
+    with _timed_phase(phase_times, "bucket_encode_write"):
+        nodes = _write_levels(
+            output_directory, final_nodes, batch, order, root_cube, resolution
+        )
+    return batch.take(order[residual_idx]), nodes
 
 
 # --- the device bucket pipeline (mirrors streaming.py:631-746) -------------
@@ -612,15 +718,16 @@ def _finish_device_bucket(
 
 def _discover_subtree_levels(
     codes, n, depth_cap, root_edge, resolution, bucket_path, bucket_level,
+    raw_codes=None,
 ) -> Dict[int, _LevelNodes]:
     """Like builder._discover_levels but rooted at the level-B bucket node
     (which is treated as split unconditionally; its residual is handled by
     the top pass), over SORTED codes.
 
-    The split discovery of the JAX package's host bucket path; the device
-    path above does not call it.  The tests hold the device derivation's
-    grouping to it.  (The JAX function's `raw_codes` serves deep builds,
-    which are not ported yet.)"""
+    `raw_codes` (deep builds): split decisions come from counts over the
+    PRE-reduction codes — an ancestor of a fat cell must split even when
+    its sub-build residual is small (builder._discover_levels_deep
+    semantics at bucket scope) — while point lists slice `codes`."""
     leaf_acc: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
     split_paths = np.array([bucket_path], dtype=np.uint64)
     split_ends = np.full(1, n, dtype=np.int64)
@@ -634,7 +741,14 @@ def _discover_subtree_levels(
         ends = np.concatenate(
             [starts.reshape(k, 8)[:, 1:], split_ends[:, None]], axis=1
         ).ravel()
-        counts = ends - starts
+        if raw_codes is None:
+            counts = ends - starts
+        else:
+            upper = bounds + (np.uint64(1) << shift)
+            counts = (
+                np.searchsorted(raw_codes, upper.ravel(), side="left")
+                - np.searchsorted(raw_codes, bounds.ravel(), side="left")
+            )
         nonempty = counts > 0
         edge = root_edge / (1 << level)
         can_split = level < depth_cap and edge > resolution

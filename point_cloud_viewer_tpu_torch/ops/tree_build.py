@@ -241,6 +241,26 @@ def tree_codes_grouped_on_device(
     )
 
 
+def argsort_codes_on_device(codes_u64, device):
+    """Host uint64 Morton codes (< 2^63) -> (sorted codes, int64 order),
+    the sort on `device`: the deep build's top sort and the streamed deep
+    bucket's (tree_build.py:689-715).
+
+    A stable sort on the int64 key gives the order of JAX's 3-key sort over
+    (hi, lo, idx), because idx is unique.  No padding: the JAX size ladder
+    and its sentinel codes only bound XLA's compiles.  On CUDA the order
+    comes back through a pinned buffer on the current stream."""
+    dev = torch.device(device)
+    _, perm = torch.sort(upload_codes(codes_u64, dev), stable=True)
+    if dev.type == "cuda":
+        host = torch.empty(perm.shape, dtype=perm.dtype, pin_memory=True)
+        host.copy_(perm, non_blocking=True)
+        torch.cuda.current_stream(dev).synchronize()
+        perm = host
+    order = perm.numpy()
+    return codes_u64[order], order
+
+
 class HostExchange(NamedTuple):
     """The grouped exchange as fetched: the fast arrays, or on extras
     overflow the classic code-sorted ones (the others are None)."""

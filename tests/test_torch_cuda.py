@@ -617,6 +617,110 @@ def test_streaming_build_on_card_matches_cpu(cuda, tmp_path, monkeypatch,
         assert (card / name).read_bytes() == (cpu / name).read_bytes(), name
 
 
+# --- deep builds: re-rooted sub-builds at depth 12-19 ---------------------
+
+
+def _deep_codes(n, depth, seed):
+    """Sorted int64 codes of a re-rooted sub-build at `depth`: half in a
+    dense corner (a deep run of splits), runs of one code, the rest spread
+    over the cell's whole 3 * depth-bit code space."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 2 ** (3 * depth), n, dtype=np.uint64)
+    codes[: n // 2] >>= np.uint64(3 * (depth // 2))
+    codes[n // 2: n // 2 + n // 8] = codes[n // 2]
+    codes[-(n // 16):] = np.uint64(2 ** (3 * depth) - 1)
+    return torch.sort(torch.from_numpy(codes.view(np.int64))).values
+
+
+@pytest.mark.parametrize("n", [1, 8191, 8193, 1_000_003])
+@pytest.mark.parametrize("depth", [12, 19])
+def test_stages_at_sub_build_depths_match_plain(cuda, depth, n):
+    """The K6 leaf stage and the K4 promotion stage as a deep sub-build runs
+    them (depth = max split level = 12 or 19, root 0), with and without 37
+    pad rows of arbitrary codes, against their plain versions bit for
+    bit, and the grouped derivation around them against its CPU route."""
+    host = _deep_codes(n, depth, seed=n + depth)
+    for n_real in sorted({n, max(n - 37, 0)}):
+        codes = host.clone()
+        codes[n_real:] = host[n_real:].flip(0)
+        on_card = codes.to(cuda)
+        before = (K6.leaf_stage.launches, LC.promote_stage.launches)
+        b, leaf = K6.leaf_stage(on_card, depth, depth, 100, 0, n_real)
+        want_b, want_leaf = K6.leaf_stage_plain(codes, depth, depth, 100, 0,
+                                                n_real)
+        assert torch.equal(b.cpu(), want_b), (depth, n_real, "b")
+        assert torch.equal(leaf.cpu(), want_leaf), (depth, n_real, "leaf")
+        cur = LC.promote_stage(b, leaf, depth, 0)
+        want = LC.promote_stage_plain(want_b, want_leaf, depth, 0)
+        assert torch.equal(cur.cpu(), want), (depth, n_real, "final")
+        assert (K6.leaf_stage.launches,
+                LC.promote_stage.launches) == (before[0] + 1, before[1] + 1)
+        got = tb.build_tree_device_codes_grouped(on_card, n_real, depth,
+                                                 depth, 100, extras_cap=64)
+        ref = tb.build_tree_device_codes_grouped(codes, n_real, depth, depth,
+                                                 100, extras_cap=64)
+        for name, g, w in zip(tb.GroupedExchange._fields, got, ref):
+            assert torch.equal(g.cpu(), w), (depth, n_real, name)
+
+
+def test_argsort_codes_on_device_card_matches_cpu(cuda):
+    rng = np.random.default_rng(4)
+    for n in (1, 5, 1_000_003):
+        codes = rng.integers(0, 2**63, n, dtype=np.uint64)
+        codes[: n // 3] = codes[0]
+        codes[-(n // 4):] = np.uint64(2**63 - 1)
+        got_codes, got_order = tb.argsort_codes_on_device(codes, cuda)
+        want_codes, want_order = tb.argsort_codes_on_device(codes, "cpu")
+        assert got_order.dtype == np.int64
+        np.testing.assert_array_equal(got_order, want_order)
+        np.testing.assert_array_equal(got_codes, want_codes)
+
+
+def test_deep_build_on_card_matches_host_route(cuda, tmp_path, monkeypatch):
+    """A planet-box cloud with two fat level-21 cells, the device threshold
+    lowered to 1,000: in core and streamed on the card, byte-equal to the
+    host route; the K6 and K4 stages and K1 launched once a device
+    sub-build, K2, K3 and the one-level K4 never."""
+    from point_cloud_viewer_tpu_torch.math.geometry import Aabb
+    from point_cloud_viewer_tpu_torch.octree import builder as B
+    from point_cloud_viewer_tpu_torch.octree.streaming import (
+        build_octree_streaming,
+    )
+
+    monkeypatch.setattr(B, "_DEEP_DEVICE_MIN_N", 1_000)
+    edge21 = 6.4e6 / (1 << 21)
+    rng = np.random.default_rng(19)
+    position = np.concatenate([
+        (0.5 + rng.normal(0.0, 0.05, (150_000, 3))) * edge21,
+        1e6 + rng.random((120_000, 3)) * edge21 * 0.9,
+        rng.random((20_000, 3)) * 6.4e6])
+    batch = PointsBatch(position=position, attributes={
+        "color": rng.integers(0, 256, (len(position), 3), dtype=np.uint8)})
+    box = Aabb(np.zeros(3), np.full(3, 6.4e6))
+    host = tmp_path / "host"
+    build_octree(str(host), 0.001, batch, bounding_box=box, use_device=False)
+    names = sorted(p.name for p in host.iterdir())
+    assert any(len(name) > len("r.xyz") + 21 for name in names)
+    for streamed in (False, True):
+        out = tmp_path / f"card{int(streamed)}"
+        for w in _WRAPPERS + _OFF_PATH:
+            w.launches = 0
+        phases = {}
+        if streamed:
+            build_octree_streaming(str(out), 0.001, batch, bounding_box=box,
+                                   device=cuda, phase_times=phases)
+        else:
+            build_octree(str(out), 0.001, batch, bounding_box=box,
+                         device=cuda, phase_times=phases)
+        assert phases["deep_device_subbuilds"] == 2, phases
+        assert [w.launches for w in _WRAPPERS] == [2, 2, 2], streamed
+        assert [w.launches for w in _OFF_PATH] == [0, 0, 0], streamed
+        assert sorted(p.name for p in out.iterdir()) == names
+        for name in names:
+            assert (out / name).read_bytes() == (host / name).read_bytes(), (
+                streamed, name)
+
+
 # --- K7, the streaming-bandwidth probe ----------------------------------------
 
 

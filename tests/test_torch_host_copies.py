@@ -129,12 +129,38 @@ def _native_cases():
         "cull_lod_heap": lambda m: m.cull_lod_heap(
             *_heap_args(RNG_SEED), 200),
         "parse_octree_meta": lambda m: m.parse_octree_meta(meta),
+        "tree_levels": lambda m: [
+            m.tree_levels(c, depth, max_split, mp, root, stop)
+            for c, depth, max_split, mp, root, stop in _tree_levels_args()],
     }
     for dt in (np.uint8, np.uint16, np.float32, np.float64):
         cases[f"gather_encode_{np.dtype(dt).name}"] = (
             lambda m, dt=dt: m.gather_encode(pos, idx, node_min, node_edge,
                                              offsets, dt))
     return cases
+
+
+def _tree_levels_args():
+    """Sorted codes for native tree_levels: the whole tree at depth 21, a
+    bucket subtree (root and stop level 2) and a re-rooted deep sub-build
+    (depth 12 and 19, as a planet-box cell), runs of one code included."""
+    rng = np.random.default_rng(RNG_SEED + 2)
+    out = []
+    for depth, max_split, mp, root, stop in ((21, 21, 1000, 0, 0),
+                                             (21, 21, 100, 2, 2),
+                                             (21, 18, 50, 0, 3),
+                                             (12, 12, 500, 0, 0),
+                                             (19, 19, 80, 1, 4)):
+        n = 40_000
+        codes = rng.integers(0, 2 ** (3 * depth), n, dtype=np.uint64)
+        codes[: n // 2] &= ~np.uint64(2 ** (3 * depth - 12) - 1)
+        codes[n // 2: n // 2 + 3000] = codes[n // 2]
+        if root:
+            top = np.uint64(3 * (depth - root))
+            codes = (codes[0] >> top << top) | (
+                codes & np.uint64((1 << int(top)) - 1))
+        out.append((np.sort(codes), depth, max_split, mp, root, stop))
+    return out
 
 
 def rng_codes(seed):
@@ -155,7 +181,7 @@ NATIVE_NAMES = [
     "gather_encode_float32", "gather_encode_float64",
     "gather_encode_uint16", "gather_encode_uint8", "group_levels_full",
     "morton_encode", "parse_octree_meta", "quantize_morton",
-    "radix_argsort_u64", "take_rows",
+    "radix_argsort_u64", "take_rows", "tree_levels",
 ]
 
 
@@ -176,10 +202,11 @@ def test_native_function_bit_equal_to_jax(name):
 
 def test_native_library_has_only_the_ports_functions():
     h = native.lib()
-    for fn in ("tree_levels", "decode_to_f32_relative", "encode_positions_u8",
+    for fn in ("decode_to_f32_relative", "encode_positions_u8",
                "encode_positions_u16"):
         assert not hasattr(h, fn)
-    assert h.pcv_native_abi_version() == 3
+    assert hasattr(h, "tree_levels")
+    assert h.pcv_native_abi_version() == 4
 
 
 # --- protos, codec, node_id ---------------------------------------------------
@@ -283,6 +310,15 @@ def _case_node_id():
     assert [str(n) for n in mine] == [str(n) for n in ids]
     for g, w in zip(PN.unpack_ids(mine), JN.unpack_ids(ids)):
         _same(g, w)
+    # find_bounding_cube over the format's range (120-bit paths, level 40)
+    for level, h, l in zip(levels[:500], hi[:500], lo[:500]):
+        path = ((int(h) << 64) | int(l)) & ((1 << (3 * int(level))) - 1)
+        g = PN.NodeId.from_level_index(int(level), path).find_bounding_cube(
+            root_p)
+        w = JN.NodeId.from_level_index(int(level), path).find_bounding_cube(
+            root_j)
+        _same(g.min, w.min)
+        assert g.edge_length == w.edge_length
 
 
 @pytest.mark.parametrize("case", ["meta_roundtrip", "codec", "node_id"])

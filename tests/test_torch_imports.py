@@ -225,3 +225,57 @@ def test_host_cull_of_a_large_octree_stands_alone(tmp_path):
         matrix, max_nodes=10_000)
     assert 0 < len(got) < 100_000
     assert got == [n.value for n in want]
+
+
+def test_deep_and_host_builds_stand_alone(tmp_path):
+    """With jax and the JAX package refused: a deep build (planet box, one
+    fat level-21 cell) on CPU tensors with the device threshold lowered,
+    the same cloud on the host route, in core and streamed, all four
+    byte-equal; then a host build through cli.build_octree
+    --no-use_device."""
+    out = _run_refused(f"""
+        import os
+
+        import numpy as np
+        from point_cloud_viewer_tpu_torch.cli.build_octree import main as cli
+        from point_cloud_viewer_tpu_torch.core.points_batch import PointsBatch
+        from point_cloud_viewer_tpu_torch.math.geometry import Aabb
+        from point_cloud_viewer_tpu_torch.octree import builder as B
+        from point_cloud_viewer_tpu_torch.octree.streaming import (
+            build_octree_streaming)
+        import chip_smoke
+
+        B._DEEP_DEVICE_MIN_N = 1_000
+        rng = np.random.default_rng(8)
+        pos = np.concatenate([rng.random((104_000, 3)) * 2.5 + 7e5,
+                              rng.random((3_000, 3)) * 4e6])
+        batch = PointsBatch(position=pos, attributes={{
+            "color": rng.integers(0, 256, (len(pos), 3), dtype=np.uint8)}})
+        box = Aabb(np.zeros(3), np.full(3, 6.4e6))
+        tmp = {str(tmp_path)!r}
+        dirs = [os.path.join(tmp, d) for d in ("dev", "host", "sdev", "shost")]
+        phases = {{}}
+        B.build_octree(dirs[0], 0.01, batch, bounding_box=box, device="cpu",
+                       phase_times=phases)
+        assert phases["deep_device_subbuilds"] == 1, phases
+        B.build_octree(dirs[1], 0.01, batch, bounding_box=box,
+                       use_device=False)
+        for d, use_device in ((dirs[2], True), (dirs[3], False)):
+            build_octree_streaming(d, 0.01, batch, bounding_box=box,
+                                   use_device=use_device, device="cpu")
+        files = sorted(os.listdir(dirs[0]))
+        assert any(len(f) > len("r") + 21 + len(".xyz") for f in files)
+        for d in dirs[1:]:
+            assert sorted(os.listdir(d)) == files
+            for f in files:
+                a, b = (open(os.path.join(x, f), "rb").read()
+                        for x in (dirs[0], d))
+                assert a == b, (d, f)
+        ply = os.path.join(tmp, "cloud.ply")
+        chip_smoke.write_ply(ply, 20_000, seed=4)
+        assert cli([ply, "--output_directory", os.path.join(tmp, "cli"),
+                    "--no-use_device"]) == 0
+        assert_nothing_refused_loaded()
+        print("deep files", len(files))
+    """)
+    assert "deep files" in out

@@ -338,17 +338,6 @@ def test_one_shot_iterator_and_unknown_attribute_raise(tmp_path):
                                       device="cpu")
 
 
-def test_unported_routes_raise(tmp_path):
-    batch = PointsBatch(position=np.array([[0.0, 0.0, 0.0], [1e7, 1e7, 1e7]]),
-                        attributes={})
-    with pytest.raises(NotImplementedError, match="deep build"):
-        PS.build_octree_streaming(str(tmp_path / "o"), 0.001, batch,
-                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        PS.build_octree_streaming(str(tmp_path / "o"), 0.001, batch,
-                                  use_device=False, device="cpu")
-
-
 def test_cpu_route_launches_no_kernel(tmp_path):
     wrappers = (SC.scan_1d, LC.seg_start_pass, LC.leaf_update_pass,
                 LC.promote_pass, LC.promote_stage)
@@ -417,7 +406,7 @@ def test_cli_streaming_matches_jax_cli(tmp_path, capsys):
 @pytest.mark.parametrize("flags,use_device,message", [
     (["--spill_directory", "s"], True, "requires --streaming"),
     (["--streaming", "--mesh", "2"], True, "not supported with --streaming"),
-    (["--streaming"], False, "not yet ported"),
+    (["--mesh", "2"], False, "not yet ported"),
 ])
 def test_cli_streaming_argument_errors(tmp_path, capsys, flags, use_device,
                                        message):
