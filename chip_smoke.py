@@ -8,7 +8,7 @@ Phases (any failure raises and the exit code is non-zero):
   1. device  -- require CUDA; print the card's name and power limit; a
                 meta-path finder refuses every import of jax and of the JAX
                 package (point_cloud_viewer_tpu), so the run proves the port
-                stands alone;
+                stands alone; whether scipy and PIL import;
   2. build   -- compile the port's CUDA kernels (csrc/*.cu) with nvcc and,
                 beside them, its host library (native/pcv_native.cpp) with
                 g++, so no later wall time holds a build;
@@ -90,6 +90,23 @@ Phases (any failure raises and the exit code is non-zero):
                 through cli.build_octree --no-use_device, byte-compared
                 with phase 5's card build; phase times and walls of every
                 build;
+  10. query (run after 7c) -- a 16M-point cloud on and above the WGS84
+                surface (a 20 km x 20 km site, altitudes -100 to 500 m,
+                half uniform, half in 64 Gaussian clusters) through
+                cli.build_octree on the card at 1 cm (launches as phase
+                5's); an AABB, a cell union of level 12-14 cells, a
+                WebMercator rect (zoom 12) whose edges cross the site and
+                the AABB with an intensity interval through cli.query_points
+                on the card (its default) and with --no-device_filter,
+                equal counts; those and an OBB, a frustum and the OBB with
+                the interval through PointCloudClient.stream on the card
+                and on the host, sorted positions byte-equal; walls, rows
+                filtered on the card, band rows and rows the host
+                recomputed, the WebMercator margin; no kernel of K1-K7
+                launched by the queries; then 1,048,576 points on the OBB's
+                faces and on the frustum's planes, and S2 points on face
+                boundaries (argmax ties, bit 63 set), masks and leaf ids on
+                the card against device="cpu" and the host, bit for bit;
   8. probe + bounds -- K7 (copy, triad, add3) against its plain version
                 at 128,000,000 and ragged n, bit for bit; the streaming-
                 bandwidth probes (hbm_probes: add_1d, add_2d, copy, triad,
@@ -115,6 +132,7 @@ JAX package.
 from __future__ import annotations
 
 import contextlib
+import importlib
 import io
 import json
 import os
@@ -145,6 +163,13 @@ REPS = 5                             # timed repetitions (median reported)
 PROBE_N = 128_000_000                # phase 8: bench.py:145's probe size
 PROBE_RAGGED = (1, 3, 5, 4097, 1_000_003)
 PROBE_ITERS = 20                     # bench.py:144
+QUERY_POINTS = 16_000_000            # phase 10: the README's in-core cloud
+QUERY_SITE = (48.8566, 2.3522)       # phase 10: site centre, degrees
+QUERY_EDGE = 20_000.0                # phase 10: site edge (m), east / north
+QUERY_ALT = (-100.0, 500.0)          # phase 10: altitudes (m)
+QUERY_RESOLUTION = 0.01              # phase 10: 1 cm (depth cap 21)
+QUERY_ZOOM = 12                      # phase 10: --web_mercator_rect zoom
+QUERY_FACE_POINTS = 1 << 20          # phase 10b: adversarial points
 # f32 rate outside the tensor cores, NVIDIA H100 SXM data sheet (an FMA
 # counts two operations), at the 700 W power limit.
 FP32_PEAK_OPS = 67e12
@@ -723,9 +748,6 @@ def write_ply(path: str, n: int, seed: int) -> None:
     """Binary PLY: xyz f64, rgb u8, intensity f32; half uniform over a
     200 x 200 x 40 m box, half in 64 dense clusters."""
     rng = np.random.default_rng(seed)
-    rows = np.empty(n, dtype=[("x", "<f8"), ("y", "<f8"), ("z", "<f8"),
-                              ("red", "u1"), ("green", "u1"), ("blue", "u1"),
-                              ("intensity", "<f4")])
     half = n // 2
     extent = np.array([200.0, 200.0, 40.0])
     pos = np.empty((n, 3))
@@ -733,6 +755,16 @@ def write_ply(path: str, n: int, seed: int) -> None:
     centers = rng.random((64, 3)) * extent
     which = rng.integers(0, 64, n - half)
     pos[half:] = centers[which] + rng.normal(0.0, 0.5, (n - half, 3))
+    write_ply_points(path, pos, rng)
+
+
+def write_ply_points(path: str, pos: np.ndarray, rng) -> None:
+    """Binary PLY of the (n, 3) f64 positions, with rgb u8 and intensity
+    f32 drawn from rng."""
+    n = len(pos)
+    rows = np.empty(n, dtype=[("x", "<f8"), ("y", "<f8"), ("z", "<f8"),
+                              ("red", "u1"), ("green", "u1"), ("blue", "u1"),
+                              ("intensity", "<f4")])
     rows["x"], rows["y"], rows["z"] = pos[:, 0], pos[:, 1], pos[:, 2]
     rgb = rng.integers(0, 256, (n, 3), dtype=np.uint8)
     rows["red"], rows["green"], rows["blue"] = rgb[:, 0], rgb[:, 1], rgb[:, 2]
@@ -1741,6 +1773,245 @@ def phase_deep(wrappers: dict, tmp: str, ply16: str, incore16: str) -> dict:
     return launches
 
 
+# --- phase 10: the query path ------------------------------------------------
+
+
+def query_cloud(n: int, seed: int) -> np.ndarray:
+    """(n, 3) f64 ECEF points on and above the WGS84 surface over a
+    QUERY_EDGE x QUERY_EDGE m site centred on QUERY_SITE, altitudes in
+    QUERY_ALT: half uniform, half in 64 Gaussian clusters (sigma 40 m
+    across, 10 m up), converted with the port's wgs84.geodetic_to_ecef."""
+    from point_cloud_viewer_tpu_torch.math import wgs84
+
+    rng = np.random.default_rng(seed)
+    half = n // 2
+    east_north = (rng.random((n, 2)) - 0.5) * QUERY_EDGE
+    alt = rng.uniform(*QUERY_ALT, n)
+    centers = (rng.random((64, 3)) - 0.5) * [QUERY_EDGE, QUERY_EDGE, 0.0]
+    centers[:, 2] = rng.uniform(*QUERY_ALT, 64)
+    which = rng.integers(0, 64, n - half)
+    east_north[half:] = np.clip(
+        centers[which, :2] + rng.normal(0.0, 40.0, (n - half, 2)),
+        -QUERY_EDGE / 2, QUERY_EDGE / 2)
+    alt[half:] = np.clip(centers[which, 2] + rng.normal(0.0, 10.0, n - half),
+                         *QUERY_ALT)
+    lat0, lon0 = QUERY_SITE
+    m_per_deg = 111_320.0
+    lat = lat0 + east_north[:, 1] / m_per_deg
+    lon = lon0 + east_north[:, 0] / (m_per_deg * np.cos(np.deg2rad(lat0)))
+    return wgs84.geodetic_to_ecef(np.deg2rad(lat), np.deg2rad(lon), alt)
+
+
+def query_set(ecef: np.ndarray) -> list:
+    """phase 10's queries over part of the site: [(name, CLI flags or None,
+    location, filter intervals)].  The CLI has no OBB or frustum flag (nor
+    has the JAX package's), so those two run through the library only."""
+    from point_cloud_viewer_tpu_torch.math import s2, wgs84
+    from point_cloud_viewer_tpu_torch.math.geometry import (
+        Aabb, Frustum, Isometry, Obb, Perspective)
+    from point_cloud_viewer_tpu_torch.math.intervals import ClosedInterval
+    from point_cloud_viewer_tpu_torch.math.web_mercator import (
+        WebMercatorRect, lat_lng_to_web_mercator)
+    from point_cloud_viewer_tpu_torch.s2_cells.cell_union import CellUnion
+
+    lat0, lon0 = QUERY_SITE
+    frame = wgs84.local_frame_from_lat_lng(lat0, lon0)
+    to_ecef = frame.inverse()
+    center = to_ecef.translation
+    aabb = Aabb(center - [3000.0, 3500.0, 2500.0],
+                center + [2500.0, 2000.0, 3000.0])
+    obb = Obb(to_ecef.compose(Isometry.from_axis_angle(
+        [0, 0, 1], 0.3, translation=[1500.0, -2000.0, 100.0])),
+        np.array([3500.0, 2000.0, 300.0]))
+    frustum = Frustum.new(to_ecef.compose(Isometry.from_axis_angle(
+        [1, 0, 0], 0.25, translation=[-1000.0, 500.0, 3000.0])),
+        Perspective.from_fov(1.3, 0.8, 10.0, 6000.0))
+    # Cells around points within 700 m of the site's north-south axis: a
+    # cell's world box spans the Earth's radius band (31.6 km), so cells
+    # spread east-west would reach almost every node of the site.
+    sample = ecef[:len(ecef) // 2:1000]
+    sample = sample[np.abs(frame.transform_points(sample)[:, 0]) < 700.0]
+    leaves = s2.leaf_cell_ids_from_points(
+        sample[::max(1, len(sample) // 16)][:16])
+    cells = {int(c) for level, k in ((12, 4), (13, 8), (14, 16))
+             for c in s2.parent(leaves[:k], level)}
+    union = CellUnion(sorted(cells))
+    tokens = ",".join(s2.token(int(c)) for c in union.ids)
+    zoom = float(256 << QUERY_ZOOM)
+    c = lat_lng_to_web_mercator(np.deg2rad(lat0), np.deg2rad(lon0)) * zoom
+    lo, hi = c + [-160.0, -120.0], c + [90.0, 140.0]
+    rect = WebMercatorRect.from_zoomed_coordinates(lo, hi, QUERY_ZOOM)
+    intensity = {"intensity": ClosedInterval(0.2, 0.6)}
+    box_flag = ",".join(repr(float(v)) for v in (*aabb.mins, *aabb.maxs))
+    return [
+        ("aabb", ["--aabb", box_flag], aabb, {}),
+        ("obb", None, obb, {}),
+        ("frustum", None, frustum, {}),
+        ("cell_union", ["--cell_union", tokens], union, {}),
+        ("web_mercator", ["--web_mercator_rect", ",".join(
+            repr(float(v)) for v in (*lo, *hi)) + f",{QUERY_ZOOM}"],
+         rect, {}),
+        ("aabb+intensity", ["--aabb", box_flag, "--filter_interval",
+                            "intensity=0.2,0.6"], aabb, intensity),
+        ("obb+intensity", None, obb, intensity),
+    ]
+
+
+def run_query_cli(args: list) -> tuple:
+    """cli.query_points main on args -> (points it streamed, wall s)."""
+    from point_cloud_viewer_tpu_torch.cli.query_points import main as query
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = query(args)
+    wall = time.perf_counter() - t0
+    said = re.search(r"Streamed (\d+) points", buf.getvalue())
+    if rc != 0 or not said:
+        raise AssertionError(f"query cli {args} returned {rc}: "
+                             f"{buf.getvalue()}")
+    return int(said.group(1)), wall
+
+
+def stream_sorted(client, query) -> tuple:
+    """The client's streamed positions, rows sorted -> (positions, wall s
+    of the stream alone)."""
+    t0 = time.perf_counter()
+    parts = [b.position for b in client.stream(query)]
+    wall = time.perf_counter() - t0
+    pos = np.concatenate(parts) if parts else np.empty((0, 3))
+    return pos[np.lexsort(pos.T)], wall
+
+
+def phase_query(wrappers: dict, tmp: str) -> None:
+    """10: the query path.  a. A QUERY_POINTS cloud on and above the WGS84
+    surface (query_cloud) through cli.build_octree on the card at 1 cm;
+    each query of query_set through cli.query_points on the card (the
+    default) and with --no-device_filter, the counts equal, and through
+    PointCloudClient.stream on the card and on the host, the sorted
+    positions byte-equal; walls, rows filtered on the card, band rows and
+    rows the host recomputed, the WebMercator margin.  b. QUERY_FACE_POINTS
+    points on the OBB's faces and the frustum's planes, and S2 points on
+    face boundaries (argmax ties, bit 63 set): point_filter_mask and
+    leaf_ids on the card against device="cpu" and the host, bit for bit.
+    The build's launches are held as phase 5's; the queries launch none of
+    K1-K7.  Removes its files."""
+    import torch
+
+    from point_cloud_viewer_tpu_torch import testing
+    from point_cloud_viewer_tpu_torch.math import s2, s2_device
+    from point_cloud_viewer_tpu_torch.math.web_mercator_device import (
+        _calibrated_delta)
+    from point_cloud_viewer_tpu_torch.query import device_filter as DF
+    from point_cloud_viewer_tpu_torch.query.client import PointCloudClient
+    from point_cloud_viewer_tpu_torch.query.location import location_for
+    from point_cloud_viewer_tpu_torch.query.point_query import PointQuery
+    from point_cloud_viewer_tpu_torch.s2_cells.cell_union import CellUnion
+
+    dev = torch.device(DEVICE)
+    t_phase = t0 = time.perf_counter()
+    ecef = query_cloud(QUERY_POINTS, seed=10)
+    ply = os.path.join(tmp, "site.ply")
+    write_ply_points(ply, ecef, np.random.default_rng(11))
+    octree = os.path.join(tmp, "site")
+    gen_s = time.perf_counter() - t0
+    for w in wrappers.values():
+        w.launches = 0
+    phases = {}
+    t0 = time.perf_counter()
+    out = run_cli([ply, "--output_directory", octree, "--resolution",
+                   str(QUERY_RESOLUTION)], phases)
+    build_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    check_build_launches("query cloud build", launches, 1)
+    os.remove(ply)
+    level12 = len(np.unique(s2.parent(
+        s2.leaf_cell_ids_from_points(ecef[::1000]), 12)))
+    queries = query_set(ecef)
+    log(f"query: {QUERY_POINTS} points over a {QUERY_EDGE:.0f} m site at "
+        f"{QUERY_SITE} (made and written in {gen_s:.3f} s; {level12} "
+        f"level-12 S2 cells); cli.build_octree on the card at "
+        f"{QUERY_RESOLUTION} m {build_s:.3f} s, launches "
+        f"{json.dumps(launches)}; cli said: {out.strip().splitlines()[0]}")
+    del ecef
+
+    for w in wrappers.values():
+        w.launches = 0
+    attrs = ["--attributes", "color", "intensity"]
+    for name, flags, location, intervals in queries:
+        line = [f"query {name}:"]
+        if flags is not None:
+            card_n, card_s = run_query_cli([octree, *flags, *attrs])
+            host_n, host_s = run_query_cli([octree, *flags, *attrs,
+                                            "--no-device_filter"])
+            if card_n != host_n:
+                raise AssertionError(f"query {name}: the CLI streamed "
+                                     f"{card_n} points on the card, "
+                                     f"{host_n} on the host")
+            line.append(f"cli {card_n} points, card {card_s:.3f} s, host "
+                        f"{host_s:.3f} s;")
+        query = PointQuery(attributes=["color", "intensity"],
+                           location=location, filter_intervals=intervals)
+        card = PointCloudClient.from_locations([octree])
+        got, card_s = stream_sorted(card, query)
+        want, host_s = stream_sorted(PointCloudClient.from_locations(
+            [octree], device_filter=False), query)
+        if got.shape != want.shape or got.tobytes() != want.tobytes():
+            raise AssertionError(f"query {name}: the card's stream differs "
+                                 f"from the host's ({len(got)} vs "
+                                 f"{len(want)} points)")
+        if not 0 < len(got) < QUERY_POINTS:
+            raise AssertionError(f"query {name}: {len(got)} points")
+        stats = card.filter_stats
+        line.append(
+            f"stream {len(got)} points == host, byte-equal; card "
+            f"{card_s:.3f} s, host {host_s:.3f} s; filtered on the card "
+            f"{stats.rows} rows, band {stats.uncertain}, host recomputed "
+            f"{stats.refined}")
+        if name == "web_mercator":
+            on_card = torch.empty(0, device=dev).device  # with its index
+            line[-1] += f"; delta {_calibrated_delta(on_card)!r}"
+        log(" ".join(line))
+    launches = {k: w.launches for k, w in wrappers.items()}
+    if any(launches.values()):
+        raise AssertionError(f"query: kernels launched on the query path "
+                             f"{launches}")
+    shutil.rmtree(octree)
+
+    by_name = {name: location for name, _, location, _ in queries}
+    for name, make in (("obb", testing.obb_face_points),
+                       ("frustum", testing.frustum_plane_points)):
+        loc = location_for(by_name[name])
+        pts = make(loc.geometry, QUERY_FACE_POINTS, seed=12)
+        host = loc.contains(pts)
+        stats = DF.FilterStats()
+        t0 = time.perf_counter()
+        card = DF.point_filter_mask(loc, pts, device=dev, stats=stats)
+        card_s = time.perf_counter() - t0
+        cpu = DF.point_filter_mask(loc, pts, device="cpu")
+        if not (np.array_equal(card, host) and np.array_equal(cpu, host)):
+            raise AssertionError(f"query {name} faces: card or CPU route "
+                                 f"differs from the host")
+        log(f"query {name} faces: {len(pts)} points, {int(host.sum())} in; "
+            f"card == CPU route == host; band {stats.uncertain} rows; card "
+            f"{card_s:.3f} s")
+    pts = testing.s2_face_points(QUERY_FACE_POINTS, seed=13)
+    host = s2.leaf_cell_ids_from_points(pts)
+    ids = {d: s2_device.leaf_ids(torch.from_numpy(pts).to(d)).cpu().numpy()
+           .view(np.uint64) for d in (dev, torch.device("cpu"))}
+    union = CellUnion([int(c) for c in s2.parent(host[::4096], 9)])
+    want = union.contains(pts)
+    masks = {d: DF.point_filter_mask(union, pts, device=d)
+             for d in (dev, torch.device("cpu"))}
+    if not (all(np.array_equal(v, host) for v in ids.values())
+            and all(np.array_equal(v, want) for v in masks.values())):
+        raise AssertionError("query S2: ids or union masks differ")
+    log(f"query S2: {len(pts)} points on all six faces ({int((host >> np.uint64(63)).sum())} "
+        f"ids with bit 63 set, {int(want.sum())} in a {len(union)}-cell "
+        f"union); leaf ids and union masks card == CPU route == host")
+    log(f"query: phase 10 took {time.perf_counter() - t_phase:.3f} s")
+
+
 # --- phase 8: K7, the probes, and every kernel's bound -------------------
 
 
@@ -1875,6 +2146,13 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}; imports of "
         "jax and point_cloud_viewer_tpu refused")
+    found = {}
+    for name in ("scipy", "PIL"):
+        try:
+            found[name] = importlib.import_module(name).__version__
+        except ImportError:
+            found[name] = "does not import"
+    log(f"device: scipy {found['scipy']}; PIL {found['PIL']}")
 
     host = {}
 
@@ -1941,6 +2219,7 @@ def main() -> int:
         deep = phase_deep(build, tmp, ply, octree_dir)
         streamed, buckets = phase_streaming(build, tmp, ply, octree_dir,
                                             incore_wall)
+        phase_query(build, tmp)
         log(f"launches on the in-core path (phase 5) {json.dumps(incore)}; "
             f"on the streaming path (phase 7c, 16M, {buckets} buckets) "
             f"{json.dumps(streamed)}; on the deep 16M build (phase 9) "

@@ -45,6 +45,14 @@ class PointsBatch:
     def attribute_names(self) -> List[str]:
         return list(self.attributes)
 
+    def retain(self, keep: np.ndarray) -> "PointsBatch":
+        """Return a batch with only the rows where `keep` is True."""
+        keep = np.asarray(keep, dtype=bool)
+        return PointsBatch(
+            position=self.position[keep],
+            attributes={k: v[keep] for k, v in self.attributes.items()},
+        )
+
     def take(self, indices: np.ndarray) -> "PointsBatch":
         """Return a batch gathered at `indices` (row order preserved)."""
         return PointsBatch(
@@ -57,6 +65,13 @@ class PointsBatch:
             position=self.position[start:stop],
             attributes={k: v[start:stop] for k, v in self.attributes.items()},
         )
+
+    def split_off(self, at: int) -> "PointsBatch":
+        """Split this batch in place at `at`; returns the tail."""
+        tail = self.slice(at, len(self))
+        self.position = self.position[:at]
+        self.attributes = {k: v[:at] for k, v in self.attributes.items()}
+        return tail
 
     @staticmethod
     def concatenate(batches: Iterable["PointsBatch"]) -> "PointsBatch":

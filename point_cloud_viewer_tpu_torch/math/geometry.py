@@ -1,10 +1,15 @@
-"""Geometric primitives: Isometry, Aabb, Cube, Perspective, Frustum (copy of
-point_cloud_viewer_tpu/math/geometry.py:27-316, trimmed to what the
-builders, the octree and the viewer call; the JAX package's Obb and point
-containment tests are left out).
+"""Geometric primitives: Aabb, Cube, Obb, Perspective, Frustum.
 
-SAT statistics (corners, edges, normals) are produced as arrays for
-`math.sat`.
+Containment tests are vectorized over (N, 3) point arrays (the reference
+tests one Point3 at a time — src/geometry/*.rs); SAT statistics (corners,
+edges, normals) are produced as arrays for `math.sat`.
+
+Semantics preserved from the reference:
+* Aabb.contains is half-open: min <= p < max       (src/geometry/aabb.rs:46-48)
+* Obb.contains is closed: |local p| <= half_extent (src/geometry/obb.rs:84-90)
+* Frustum.contains is open: -1 < clip p < 1        (src/geometry/frustum.rs:121-125)
+
+Copy of point_cloud_viewer_tpu/math/geometry.py:1-316, unchanged.
 """
 
 from __future__ import annotations
@@ -14,11 +19,11 @@ from typing import Optional
 
 import numpy as np
 
-from .sat import Intersector, normalize
+from .sat import Intersector, UNIT_AXES, normalize
 
 
 # ---------------------------------------------------------------------------
-# Isometry (rotation + translation), the pose type used by Frustum.
+# Isometry (rotation + translation), the pose type used by Obb/Frustum.
 
 
 @dataclass
@@ -58,6 +63,19 @@ class Isometry:
         rt = self.rotation.T
         return Isometry(rt, -rt @ self.translation)
 
+    def compose(self, other: "Isometry") -> "Isometry":
+        """self ∘ other (apply `other` first)."""
+        return Isometry(
+            self.rotation @ other.rotation,
+            self.rotation @ other.translation + self.translation,
+        )
+
+    def transform_points(self, points: np.ndarray) -> np.ndarray:
+        return points @ self.rotation.T + self.translation
+
+    def transform_vectors(self, vectors: np.ndarray) -> np.ndarray:
+        return vectors @ self.rotation.T
+
     def to_matrix4(self) -> np.ndarray:
         m = np.eye(4)
         m[:3, :3] = self.rotation
@@ -67,6 +85,11 @@ class Isometry:
 
 # ---------------------------------------------------------------------------
 # Aabb / Cube
+
+
+_CORNER_SIGNS = np.array(
+    [[x, y, z] for z in (0, 1) for y in (0, 1) for x in (0, 1)], dtype=np.float64
+)  # (8, 3): x fastest — any fixed order works for SAT min/max statistics.
 
 
 @dataclass
@@ -104,6 +127,24 @@ class Aabb:
     def diag(self) -> np.ndarray:
         return self.maxs - self.mins
 
+    def contains(self, points: np.ndarray) -> np.ndarray:
+        """(N, 3) -> (N,) bool; half-open min <= p < max."""
+        points = np.atleast_2d(points)
+        return np.all((self.mins <= points) & (points < self.maxs), axis=-1)
+
+    def corners(self) -> np.ndarray:
+        return self.mins + _CORNER_SIGNS * self.diag()
+
+    def intersector(self) -> Intersector:
+        return Intersector(corners=self.corners(), edges=UNIT_AXES.copy(), face_normals=UNIT_AXES.copy())
+
+    def transform(self, iso: Isometry) -> "Aabb":
+        c = iso.transform_points(self.corners())
+        return Aabb(c.min(axis=0), c.max(axis=0))
+
+    def to_obb(self) -> "Obb":
+        return Obb(Isometry(np.eye(3), self.center()), self.diag() * 0.5)
+
 
 @dataclass
 class Cube:
@@ -121,6 +162,48 @@ class Cube:
         """The cube with the aabb's min corner and its longest side
         (reference: src/geometry/aabb.rs:148-156) — the octree root cube."""
         return cls(aabb.mins, float(aabb.diag().max()))
+
+    def max(self) -> np.ndarray:
+        return self.min + self.edge_length
+
+    def center(self) -> np.ndarray:
+        return self.min + self.edge_length / 2.0
+
+    def to_aabb(self) -> Aabb:
+        return Aabb(self.min, self.max())
+
+    def corners(self) -> np.ndarray:
+        return self.min + _CORNER_SIGNS * self.edge_length
+
+
+# ---------------------------------------------------------------------------
+# Obb
+
+
+class Obb:
+    """Oriented bounding box: pose (query_from_obb) + half extents."""
+
+    def __init__(self, query_from_obb: Isometry, half_extent) -> None:
+        self.query_from_obb = query_from_obb
+        self.obb_from_query = query_from_obb.inverse()
+        self.half_extent = np.asarray(half_extent, dtype=np.float64)
+
+    def contains(self, points: np.ndarray) -> np.ndarray:
+        local = self.obb_from_query.transform_points(np.atleast_2d(points))
+        return np.all(np.abs(local) <= self.half_extent, axis=-1)
+
+    def corners(self) -> np.ndarray:
+        # Order matches reference compute_corners (x varies fastest).
+        signs = _CORNER_SIGNS * 2.0 - 1.0
+        return self.query_from_obb.transform_points(signs * self.half_extent)
+
+    def intersector(self) -> Intersector:
+        axes = self.query_from_obb.transform_vectors(UNIT_AXES)
+        axes = normalize(axes)
+        return Intersector(corners=self.corners(), edges=axes, face_normals=axes.copy())
+
+    def transformed(self, global_from_query: Isometry) -> "Obb":
+        return Obb(global_from_query.compose(self.query_from_obb), self.half_extent)
 
 
 # ---------------------------------------------------------------------------
@@ -172,6 +255,9 @@ def transform_homogeneous(matrix: np.ndarray, points: np.ndarray) -> np.ndarray:
     return q / w[..., None]
 
 
+_CLIP_CORNERS = (_CORNER_SIGNS * 2.0 - 1.0)[:, [0, 1, 2]]  # (-1|1)^3, x fastest
+
+
 class Frustum:
     """A view frustum defined by its clip_from_query matrix."""
 
@@ -191,6 +277,10 @@ class Frustum:
     @classmethod
     def from_matrix4(cls, clip_from_query: np.ndarray) -> "Frustum":
         return cls(clip_from_query)
+
+    def contains(self, points: np.ndarray) -> np.ndarray:
+        clip = transform_homogeneous(self.clip_from_query, points)
+        return np.all((clip > -1.0) & (clip < 1.0), axis=-1)
 
     def corners(self) -> np.ndarray:
         """World-space corners; order matches the reference (z fastest,

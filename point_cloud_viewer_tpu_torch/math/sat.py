@@ -1,14 +1,17 @@
-"""Separating-axis-theorem intersection engine, vectorized (copy of
-point_cloud_viewer_tpu/math/sat.py:22-141, trimmed to what the frustum
-cull uses).
+"""Separating-axis-theorem intersection engine, vectorized.
 
 The reference tests one pair of convex polyhedra at a time with lazy axis
 iterators (reference: src/math/sat.rs:67-205).  Here the primitive is
-*one query polyhedron against a batch of N corner sets*: corners are
-(N, 8, 3) arrays, axis projection is one matmul, and the In / Cross / Out
-relation comes out as an (N,) integer array.
+*one query polyhedron against a batch of N corner sets*: corners are (N, 8, 3)
+arrays, axis projection is a single (N*8, 3) x (3, A) matmul, and the In /
+Cross / Out relation comes out as an (N,) integer array.  This shape maps
+directly onto the TPU MXU and is used by node culling, visible-node
+selection, and the query planner.
 
-Relations are encoded as integers: REL_IN=0, REL_CROSS=1, REL_OUT=2.
+Relations are encoded as integers: REL_IN=0, REL_CROSS=1, REL_OUT=2 (ordering
+chosen so that `max` over parts composes like the reference's enum).
+
+Copy of point_cloud_viewer_tpu/math/sat.py:1-141, unchanged.
 """
 
 from __future__ import annotations
@@ -22,7 +25,10 @@ REL_IN = 0
 REL_CROSS = 1
 REL_OUT = 2
 
-UNIT_AXES = np.eye(3)
+_X_AXIS = np.array([1.0, 0.0, 0.0])
+_Y_AXIS = np.array([0.0, 1.0, 0.0])
+_Z_AXIS = np.array([0.0, 0.0, 1.0])
+UNIT_AXES = np.stack([_X_AXIS, _Y_AXIS, _Z_AXIS])
 
 
 @dataclass
@@ -47,11 +53,22 @@ class Intersector:
         crosses = crosses[np.isfinite(crosses).all(axis=1)]
         return np.concatenate([self.face_normals, other_face_normals, crosses])
 
+    def cached_axes(
+        self, other_edges: np.ndarray, other_face_normals: np.ndarray
+    ) -> "CachedAxes":
+        axes = dedup_axes(self.separating_axes_with(other_edges, other_face_normals))
+        return CachedAxes(axes=axes, corners=self.corners)
+
     def cached_axes_for_aabb(self) -> "CachedAxes":
         """Axes for testing against any AABB (whose edges/normals are the
         unit axes) — reference: src/math/sat.rs:141-148."""
-        axes = dedup_axes(self.separating_axes_with(UNIT_AXES, UNIT_AXES))
-        return CachedAxes(axes=axes, corners=self.corners)
+        return self.cached_axes(UNIT_AXES, UNIT_AXES)
+
+    def intersect(self, other: "Intersector") -> int:
+        axes = self.separating_axes_with(other.edges, other.face_normals)
+        return int(
+            sat_relation(axes, self.corners, other.corners[None, ...])[0]
+        )
 
 
 @dataclass
@@ -66,6 +83,22 @@ class CachedAxes:
         single = corners.ndim == 2
         rel = sat_relation(self.axes, self.corners, corners[None, ...] if single else corners)
         return int(rel[0]) if single else rel
+
+    def intersect_bounds(self, lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+        """SAT relations for AXIS-ALIGNED boxes given as (N, 3) lo/hi pairs,
+        without materializing (N, 8, 3) corners: the projection interval of
+        a box onto axis a is [lo@max(a,0) + hi@min(a,0),
+        lo@min(a,0) + hi@max(a,0)] — O(N*A) memory instead of O(N*8*3)."""
+        pos = np.maximum(self.axes, 0.0)  # (A, 3)
+        neg = np.minimum(self.axes, 0.0)
+        b_min = lo @ pos.T + hi @ neg.T  # (N, A)
+        b_max = lo @ neg.T + hi @ pos.T
+        proj_a = self.corners @ self.axes.T
+        a_min = proj_a.min(axis=0)
+        a_max = proj_a.max(axis=0)
+        out = np.any((b_min > a_max) | (b_max < a_min), axis=1)
+        cross = np.any((a_min > b_min) | (b_max > a_max), axis=1)
+        return np.where(out, REL_OUT, np.where(cross, REL_CROSS, REL_IN)).astype(np.int8)
 
 
 def dedup_axes(axes: np.ndarray, eps: float = 2.220446049250313e-16) -> np.ndarray:
@@ -91,16 +124,19 @@ def sat_relation(
     """Batched SAT: how is each corner set in `corners_b` (N, 8, 3) related
     to the polyhedron with `corners_a` (8, 3)?  Returns (N,) ints.
 
-    REL_IN means B is completely inside A (reference: src/math/sat.rs:174-205)."""
+    REL_IN means B is completely inside A (reference: src/math/sat.rs:174-205).
+    Works with numpy or jax.numpy arrays (the caller picks the namespace by
+    passing that namespace's arrays)."""
+    xp = np  # numpy host path; jitted variant lives in ops/culling.py
     proj_a = corners_a @ axes.T  # (8, A)
     a_min = proj_a.min(axis=0)  # (A,)
     a_max = proj_a.max(axis=0)
     proj_b = corners_b @ axes.T  # (N, 8, A)
     b_min = proj_b.min(axis=1)  # (N, A)
     b_max = proj_b.max(axis=1)
-    out = np.any((b_min > a_max) | (b_max < a_min), axis=1)
-    cross = np.any((a_min > b_min) | (b_max > a_max), axis=1)
-    return np.where(out, REL_OUT, np.where(cross, REL_CROSS, REL_IN)).astype(np.int8)
+    out = xp.any((b_min > a_max) | (b_max < a_min), axis=1)
+    cross = xp.any((a_min > b_min) | (b_max > a_max), axis=1)
+    return xp.where(out, REL_OUT, xp.where(cross, REL_CROSS, REL_IN)).astype(np.int8)
 
 
 def normalize(v: np.ndarray) -> np.ndarray:

@@ -1,7 +1,7 @@
 """The Octree container: metadata table + vectorized visible-node selection
-(copy of point_cloud_viewer_tpu/octree/octree.py:36-367, 383-479, 512-531
-and 540-554, trimmed to what the viewer and the chip check call; the JAX
-package's web and query entry points stay there).
+(copy of point_cloud_viewer_tpu/octree/octree.py:36-367, 383-531 and
+540-554, trimmed to what the viewer, the query client and the chip check
+call; the JAX package's web entry points stay there).
 
 Where the reference walks a NodeId->NodeMeta hash map with a BinaryHeap
 (src/octree/mod.rs:228-283), this container keeps ALL node metadata as flat
@@ -413,6 +413,35 @@ class Octree:
         if max_nodes is not None:
             order = order[:max_nodes]
         return order, sizes[order]
+
+    def nodes_in_location(self, location) -> List[NodeId]:
+        """All nodes whose AABB intersects the query location (a
+        query.location.PointLocation)."""
+        return [nid for nid, _ in self.nodes_in_location_ex(location)]
+
+    def nodes_in_location_ex(self, location) -> List:
+        """Like nodes_in_location, but each entry is (NodeId, fully_inside):
+        fully_inside=True certifies every point of the node passes the
+        query's per-point containment test (the node cube bounds all its
+        points by construction), so readers may skip per-point filtering.
+        Only claimed where bit-exact (location.fully_inside_bounds)."""
+        lo = self.cube_mins
+        hi = self.cube_mins + self.cube_edges[:, None]
+        if hasattr(location, "intersects_bounds"):
+            mask = location.intersects_bounds(lo, hi)
+        else:
+            mask = location.intersects_aabbs(self.node_corners())
+        # Nodes fully drained by LOD promotion are recorded in the meta with
+        # 0 points but have NO data files (the reference deletes zero-byte
+        # files on writer drop, src/read_write/node_writer.rs:78-89) — they
+        # must never reach the readers.
+        mask &= self.num_points > 0
+        idx = np.nonzero(mask)[0]
+        fib = getattr(location, "fully_inside_bounds", None)
+        fully = fib(lo[idx], hi[idx]) if (fib is not None and len(idx)) else None
+        if fully is None:
+            fully = np.zeros(len(idx), dtype=bool)
+        return [(self.node_ids[i], bool(f)) for i, f in zip(idx, fully)]
 
     # -- point access --------------------------------------------------------
 

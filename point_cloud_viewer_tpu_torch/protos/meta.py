@@ -1,15 +1,11 @@
 """point_viewer meta.pb schema — encoder/decoder (copy of
-point_cloud_viewer_tpu/protos/meta.py:22-142, 217-308).
+point_cloud_viewer_tpu/protos/meta.py:22-308).
 
 Message and field-number layout follows the reference's wire contract
 (point_viewer_proto_rust/src/proto.proto:17-149) so metas written here are
 readable by the reference tools and vice versa.  Reading performs the version
 9→13 migrations in one place (reference: src/octree/mod.rs:154-215 and
 src/octree/node.rs:88-106), always yielding a canonical v13-shaped object.
-
-The port builds and reads octrees only: an S2 container's message (field 7)
-is kept as its raw bytes, not decoded (the JAX package's S2 messages are
-at meta.py:149-210).
 """
 
 from __future__ import annotations
@@ -19,6 +15,7 @@ import struct
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
+from ..core.attributes import AttributeDataType
 from ..core.constants import CURRENT_VERSION
 from . import pbwire as pb
 
@@ -147,6 +144,74 @@ class OctreeNodeProto:
 
 
 # ---------------------------------------------------------------------------
+# S2 messages
+
+
+@dataclass
+class S2CellProto:
+    id: int  # u64 S2 cell id
+    num_points: int
+
+    def encode(self) -> bytes:
+        w = pb.FieldWriter()
+        w.varint(1, self.id)
+        w.varint(2, self.num_points)
+        return w.finish()
+
+    @classmethod
+    def decode(cls, buf: bytes) -> "S2CellProto":
+        fields = {f: v for f, _, v in pb.iter_fields_raw(buf)}
+        return cls(id=fields.get(1, 0), num_points=fields.get(2, 0))
+
+
+@dataclass
+class AttributeProto:
+    name: str
+    data_type: AttributeDataType
+
+    def encode(self) -> bytes:
+        w = pb.FieldWriter()
+        w.string(1, self.name)
+        w.varint(2, int(self.data_type))
+        return w.finish()
+
+    @classmethod
+    def decode(cls, buf: bytes) -> "AttributeProto":
+        name = ""
+        dt = AttributeDataType.INVALID
+        for f, _, value in pb.iter_fields_raw(buf):
+            if f == 1:
+                name = value.decode("utf-8")
+            elif f == 2:
+                dt = AttributeDataType(value)
+        return cls(name=name, data_type=dt)
+
+
+@dataclass
+class S2MetaProto:
+    cells: List[S2CellProto] = field(default_factory=list)
+    attributes: List[AttributeProto] = field(default_factory=list)
+
+    def encode(self) -> bytes:
+        w = pb.FieldWriter()
+        for c in self.cells:
+            w.message(1, c.encode())
+        for a in self.attributes:
+            w.message(2, a.encode())
+        return w.finish()
+
+    @classmethod
+    def decode(cls, buf: bytes) -> "S2MetaProto":
+        out = cls()
+        for f, _, raw in pb.iter_fields_raw(buf):
+            if f == 1:
+                out.cells.append(S2CellProto.decode(raw))
+            elif f == 2:
+                out.attributes.append(AttributeProto.decode(raw))
+        return out
+
+
+# ---------------------------------------------------------------------------
 # OctreeMeta + top-level Meta
 
 
@@ -181,14 +246,13 @@ class OctreeMetaProto:
 class MetaProto:
     """Canonical (v13-shaped) representation of meta.pb.
 
-    Exactly one of `octree` / `s2` is set (the proto oneof); `s2` holds the
-    S2 message's raw bytes.
+    Exactly one of `octree` / `s2` is set (the proto oneof).
     """
 
     version: int = CURRENT_VERSION
     bounding_box: BoundingBoxProto = field(default_factory=BoundingBoxProto)
     octree: Optional[OctreeMetaProto] = None
-    s2: Optional[bytes] = None
+    s2: Optional[S2MetaProto] = None
 
     def encode(self) -> bytes:
         if (self.octree is None) == (self.s2 is None):
@@ -199,7 +263,7 @@ class MetaProto:
         if self.octree is not None:
             w.message(6, self.octree.encode())
         else:
-            w.message(7, self.s2)
+            w.message(7, self.s2.encode())
         return w.finish()
 
     @classmethod
@@ -208,7 +272,7 @@ class MetaProto:
         bbox: Optional[BoundingBoxProto] = None
         octree: Optional[OctreeMetaProto] = None
         octree_dep_bbox: Optional[BoundingBoxProto] = None
-        s2: Optional[bytes] = None
+        s2: Optional[S2MetaProto] = None
         dep_resolution = 0.0
         dep_nodes: List[OctreeNodeProto] = []
         for f, wt, raw in pb.iter_fields_raw(buf):
@@ -223,7 +287,7 @@ class MetaProto:
             elif f == 6:
                 octree, octree_dep_bbox = OctreeMetaProto.decode(raw)
             elif f == 7:
-                s2 = bytes(raw)
+                s2 = S2MetaProto.decode(raw)
 
         if version in (9, 10, 11):
             # Migrate: resolution/nodes lived at the top level.

@@ -86,6 +86,15 @@ class FieldWriter:
         if value != 0.0:
             self._parts.append(tag(field, WIRETYPE_FIXED64) + struct.pack("<d", value))
 
+    def bytes_field(self, field: int, value: bytes) -> None:
+        if value:
+            self._parts.append(
+                tag(field, WIRETYPE_LEN) + encode_varint(len(value)) + value
+            )
+
+    def string(self, field: int, value: str) -> None:
+        self.bytes_field(field, value.encode("utf-8"))
+
     def message(self, field: int, encoded: bytes, *, always: bool = True) -> None:
         """Submessages are written even when empty (presence semantics)."""
         if always or encoded:

@@ -1,0 +1,253 @@
+"""Per-point query filtering on the card (port of
+point_cloud_viewer_tpu/query/device_filter.py:38-202 to PyTorch): the box,
+OBB, frustum, S2 cell union and WebMercatorRect masks and the attribute
+interval filter, each equal bit for bit to its host twin
+(math/geometry.py contains(), s2_cells/cell_union.py, math/web_mercator.py,
+math/intervals.py).
+
+Box, cell-union and interval masks are compares of exact values (the cell
+union's ids come from math/s2_device.py's exact pipeline), so the card
+computes them outright.  The OBB and the frustum transform each point by
+an f64 matrix product, and the host mask is defined by the host's own BLAS:
+no summation order on the card (cuBLAS, or eager torch on the CPU)
+reproduces it in the last bit, and JAX's `p @ rot_t + translation`
+(device_filter.py:45) does not either.  These two use the hybrid exact
+scheme of math/web_mercator_device.py:
+
+1. the device computes the local (OBB) or clip (frustum) coordinates and a
+   bound on their error against the host's, row by row and axis by axis;
+2. it classifies each row as definitely in, definitely out or uncertain;
+3. if any row of the batch is uncertain, the host's own contains() computes
+   the geometry mask of the whole batch.  The whole batch and not the
+   uncertain rows alone: numpy sends a product of one row to gemv and one
+   of more rows to gemm, and a subset may take another BLAS kernel than
+   the batch did (OpenBLAS 0.3.27 on x86-64: 246 of 540 single rows of an
+   OBB transform differ in the last bit from the same rows in a batch).
+
+The error bound (Higham, Accuracy and Stability, 3.1): a three-term dot
+product plus an add, in any order and with or without FMA, is within
+gamma_4 * S of the exact value, where S = sum_j |p_j m_kj| + |b_k| and
+gamma_4 = 4u / (1 - 4u), u = 2^-53.  Host and device are each that close,
+so they differ by at most 2 gamma_4 S < 2^-50 S.  The device computes S
+with the same products on |p|, |m| and |b| (itself within gamma_4 of the
+exact S) and takes E = 2^-49 S + 2^-1000 (twice the need; the absolute
+term covers underflow).
+
+* OBB, host keep: |l| <= h on every axis.  With a = |l_dev|, the margin
+  M = 2 (E + 2^-52 (h + a)) covers E, the rounding of h -+ M (u (h + M))
+  and of M itself: a <= h - M on every axis is definitely in, a > h + M on
+  some axis definitely out.
+* Frustum, host keep: -1 < q_k / w < 1 for k < 3.  With the device's q, w
+  and bounds Eq, Ew, a row is uncertain where q or w is not finite or
+  |w| <= 2 Ew (w may change sign).  Otherwise the host's exact quotient
+  r_h = q_h / w_h obeys |r_h| <= R = (|q| + Eq) / (|w| - Ew), and the
+  device's exact quotient differs from it by (e_q - r_h e_w) / w, at most
+  (Eq + R Ew) / |w|; each division then rounds by u |r|.  So
+  D = (Eq + R Ew) / |w| + 2^-52 (R + |clip|) bounds |clip_dev - clip_host|,
+  and with M = 2 D + 2^-51 a row is definitely in where every
+  -1 + M < clip < 1 - M and definitely out where some clip <= -1 - M or
+  >= 1 + M.  Comparisons with NaN are false, so a NaN row, or one whose
+  margin overflows, falls to the uncertain band.
+
+WebMercatorRect runs through math/web_mercator_device.py, whose band is
+refined row by row (its host path is elementwise).
+
+`point_filter_mask` returns None only where a query is host-only by
+nature: a location type it does not know, or a filter attribute that is
+missing or not numeric (the host path then raises its KeyError or
+ValueError).  A failure on the card raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..math.geometry import Aabb, Frustum, Obb
+from .location import AllPoints, GeometryLocation
+
+_E_REL = 2.0 ** -49      # E = _E_REL * S + _E_ABS: see the module docstring
+_E_ABS = 2.0 ** -1000
+_ROUND = 2.0 ** -52      # 2u: one rounding of each division or subtraction
+
+
+class FilterStats:
+    """Thread-safe tallies of point_filter_mask's work: `rows` masked on the
+    device, `uncertain` rows in a band, `refined` rows whose mask the host
+    recomputed."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.rows = 0
+        self.uncertain = 0
+        self.refined = 0
+
+    def add(self, rows: int, uncertain: int = 0, refined: int = 0) -> None:
+        with self._lock:
+            self.rows += rows
+            self.uncertain += uncertain
+            self.refined += refined
+
+
+def _box_mask(p, mins, maxs):
+    return ((mins <= p) & (p < maxs)).all(dim=-1)
+
+
+def _affine(p, m_t, b):
+    """p @ m_t + b: the product whose rounding the bands absorb (a test
+    replaces it with another summation order)."""
+    return p @ m_t + b
+
+
+def _error_bound(p, m_t, b):
+    """E for each entry of _affine(p, m_t, b)."""
+    return _affine(p.abs(), m_t.abs(), b.abs()) * _E_REL + _E_ABS
+
+
+def _obb_classify(p, rot_t, translation, half_extent):
+    """-> (definite_in, uncertain) of |p @ rot_t + t| <= half_extent."""
+    a = _affine(p, rot_t, translation).abs()
+    margin = (_error_bound(p, rot_t, translation)
+              + (half_extent + a) * _ROUND) * 2.0
+    definite_in = (a <= half_extent - margin).all(dim=-1)
+    definite_out = (a > half_extent + margin).any(dim=-1)
+    return definite_in, ~(definite_in | definite_out)
+
+
+def _frustum_classify(p, m):
+    """-> (definite_in, uncertain) of -1 < clip < 1, clip = q / w with
+    [q | w] = p @ m[:, :3].T + m[:, 3]."""
+    m_t, b = m[:, :3].T, m[:, 3]
+    qw = _affine(p, m_t, b)
+    e = _error_bound(p, m_t, b)
+    q, w = qw[:, :3], qw[:, 3:]
+    eq, ew = e[:, :3], e[:, 3:]
+    aw = w.abs()
+    ok = torch.isfinite(qw).all(dim=-1) & (aw > ew * 2.0)[:, 0]
+    clip = q / w
+    r = (q.abs() + eq) / (aw - ew)
+    d = (eq + r * ew) / aw + (r + clip.abs()) * _ROUND
+    margin = d * 2.0 + 2.0 ** -51
+    definite_in = ok & ((clip > margin - 1.0)
+                        & (clip < 1.0 - margin)).all(dim=-1)
+    definite_out = ok & ((clip <= -1.0 - margin)
+                         | (clip >= 1.0 + margin)).any(dim=-1)
+    return definite_in, ~(definite_in | definite_out)
+
+
+def _interval_mask(values, lows, highs):
+    keep = torch.ones(values.shape[1], dtype=torch.bool, device=values.device)
+    for i in range(values.shape[0]):
+        keep = keep & (values[i] >= lows[i]) & (values[i] <= highs[i])
+    return keep
+
+
+def _is_cell_union(location) -> bool:
+    from ..s2_cells.cell_union import CellUnion
+
+    return isinstance(location, CellUnion) and len(location) > 0
+
+
+def point_filter_mask(
+    location,
+    positions: np.ndarray,
+    intervals: Optional[Dict[str, object]] = None,
+    attributes: Optional[Dict[str, np.ndarray]] = None,
+    device="cuda",
+    stats: Optional[FilterStats] = None,
+) -> Optional[np.ndarray]:
+    """(N, 3) f64 positions -> (N,) bool keep mask computed on `device`,
+    bit-equal to the host mask (location.contains and the interval
+    filters), or None if the query is host-only (see the module
+    docstring).  `device="cpu"` runs the same torch code on CPU tensors."""
+    from ..math.web_mercator import WebMercatorRect
+
+    geometry = getattr(location, "geometry", None)
+    if isinstance(location, AllPoints):
+        kind = None  # no geometric test; intervals may still apply
+    elif isinstance(location, GeometryLocation) and isinstance(
+        geometry, (WebMercatorRect, Aabb, Obb, Frustum)
+    ):
+        kind = type(geometry)
+    elif _is_cell_union(location):
+        kind = "cell_union"
+    else:
+        return None  # custom location types: host only
+
+    intervals = intervals or {}
+    for name in intervals:
+        data = (attributes or {}).get(name)
+        if data is None or np.asarray(data).ndim != 1:
+            return None  # missing attribute: let the host path raise
+        if not np.issubdtype(np.asarray(data).dtype, np.number):
+            return None
+
+    pos2d = np.atleast_2d(positions)
+    n = pos2d.shape[0]
+    if kind is None and not intervals:
+        return np.ones(n, dtype=bool)
+
+    dev = resolve_device(device)
+
+    def f64(*arrays):
+        """The arrays, flattened into one f64 upload (torch.tensor copies:
+        node positions may be read-only buffers)."""
+        parts = [np.asarray(a, dtype=np.float64).ravel() for a in arrays]
+        return torch.tensor(parts[0] if len(parts) == 1
+                            else np.concatenate(parts), device=dev)
+
+    keep = uncertain = None
+    if kind is not None:
+        p = f64(pos2d).view(n, 3)
+        if kind is Aabb:
+            keep = _box_mask(p, *f64(geometry.mins, geometry.maxs).view(2, 3))
+        elif kind is Obb:
+            iso = geometry.obb_from_query
+            c = f64(iso.rotation.T, iso.translation, geometry.half_extent)
+            keep, uncertain = _obb_classify(p, c[:9].view(3, 3), c[9:12],
+                                            c[12:])
+        elif kind is Frustum:
+            keep, uncertain = _frustum_classify(
+                p, f64(geometry.clip_from_query).view(4, 4))
+        elif kind is WebMercatorRect:
+            from ..math.web_mercator_device import classify_rect
+
+            keep, uncertain = classify_rect(geometry, p)
+        else:
+            from ..math.s2_device import union_mask, union_ranges
+
+            keep = union_mask(p, union_ranges(location, dev))
+    if intervals:
+        names = sorted(intervals)
+        values = f64(*(attributes[k] for k in names)).view(len(names), n)
+        lows, highs = f64([intervals[k].lower_bound for k in names],
+                          [intervals[k].upper_bound for k in names]).view(
+                              2, len(names))
+        im = _interval_mask(values, lows, highs)
+        keep = im if keep is None else keep & im
+        if uncertain is not None:
+            uncertain = uncertain & im  # rows the intervals drop stay out
+    if uncertain is None:
+        if stats is not None:
+            stats.add(n)
+        return keep.cpu().numpy()
+
+    both = torch.stack([keep, uncertain]).cpu().numpy()
+    result = both[0].copy()
+    idx = np.flatnonzero(both[1])
+    refined = 0
+    if len(idx) and kind is WebMercatorRect:
+        result[idx] = geometry.contains(pos2d[idx])
+        refined = len(idx)
+    elif len(idx):
+        # The whole batch, as the host computed it (see the docstring);
+        # rows outside the intervals stay out.
+        result[idx] = geometry.contains(pos2d)[idx]
+        refined = n
+    if stats is not None:
+        stats.add(n, len(idx), refined)
+    return result

@@ -1,6 +1,7 @@
 """Inputs and device readings shared by chip_smoke.py, kernel_ab.py and the
-card tests (tests/test_torch_cuda.py): a node table of IEEE corner cases
-for the cull, and what torch.profiler sees of a call on the card.
+tests: a node table of IEEE corner cases for the cull, points on the
+faces of a query OBB or frustum and S2 points on face boundaries for the
+query filter, and what torch.profiler sees of a call on the card.
 
 The profiler drops some or all of a session's device records now and then
 (it never adds any): records near either end of a session, in a process
@@ -50,6 +51,61 @@ def adversarial_node_table(k: int, seed: int):
     num_points = np.full(k, 10, dtype=np.int32)
     num_points[::13] = 0
     return mins, edges, num_points
+
+
+# Relative offsets of query face points from their face: most on it, some a
+# few ulps to either side, some farther (rows the filter decides on the
+# device beside rows in its band).
+FACE_NUDGES = np.array([0.0] * 5 + [1e-16, -1e-16, 4e-16, -4e-16, 1e-14,
+                                    -1e-14, 1e-11, -1e-11, 1e-7, -1e-7])
+
+
+def _face_coords(rng, n: int, half) -> np.ndarray:
+    """(n, 3) coordinates in the box [-half, half], each row on one of its
+    six faces, nudged by FACE_NUDGES."""
+    out = (rng.random((n, 3)) * 2.0 - 1.0) * half
+    rows, axis = np.arange(n), rng.integers(0, 3, n)
+    sign = np.where(rng.random(n) < 0.5, -1.0, 1.0)
+    out[rows, axis] = (sign * np.broadcast_to(half, (n, 3))[rows, axis]
+                       * (1.0 + rng.choice(FACE_NUDGES, n)))
+    return out
+
+
+def obb_face_points(obb, n: int, seed: int) -> np.ndarray:
+    """(n, 3) f64 query-frame points on the faces of `obb` (an Obb of either
+    package), placed in the OBB's frame and mapped out by its pose."""
+    rng = np.random.default_rng(seed)
+    return obb.query_from_obb.transform_points(
+        _face_coords(rng, n, obb.half_extent))
+
+
+def frustum_plane_points(frustum, n: int, seed: int) -> np.ndarray:
+    """(n, 3) f64 query-frame points on the six planes of `frustum` (a
+    Frustum of either package): clip coordinates on the faces of [-1, 1]^3
+    mapped out by query_from_clip."""
+    rng = np.random.default_rng(seed)
+    clip = _face_coords(rng, n, 1.0)
+    m = frustum.query_from_clip
+    q = clip @ m[:3, :3].T + m[:3, 3]
+    w = clip @ m[3, :3].T + m[3, 3]
+    return q / w[:, None]
+
+
+def s2_face_points(n: int, seed: int) -> np.ndarray:
+    """(n, 3) f64 ECEF points in the Earth's radius band over all six S2
+    faces: a quarter random directions, a quarter with |x| == |y|, a
+    quarter with |y| == |z| or |x| == |z| (argmax ties), a quarter on cube
+    diagonals and axes; faces 4 and 5 (-y, -z) give ids with bit 63 set."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n, 3))
+    q = n // 4
+    d[q:2 * q, 1] = d[q:2 * q, 0] * rng.choice([-1.0, 1.0], q)
+    rows, source = np.arange(2 * q, 3 * q), rng.integers(0, 2, q)
+    d[rows, 2] = d[rows, source] * rng.choice([-1.0, 1.0], q)
+    rest = n - 3 * q
+    d[3 * q:] = rng.choice([-1.0, 0.0, 1.0], (rest, 3))
+    d[3 * q:][~d[3 * q:].any(axis=1)] = [0.0, 0.0, -1.0]
+    return d * rng.uniform(6.35e6, 6.39e6, (n, 1))
 
 
 def kernel_name(key: str) -> str:

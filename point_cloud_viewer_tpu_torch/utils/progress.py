@@ -1,6 +1,6 @@
-"""Timing breadcrumbs: `timed` and `timed_phase` (copy of
-point_cloud_viewer_tpu/utils/progress.py:51-81; `build_octree(progress=
-True)` passes `echo`)."""
+"""Timing breadcrumbs, `timed` and `timed_phase`, and the CLI's box parser
+`parse_aabb` (copy of point_cloud_viewer_tpu/utils/progress.py:51-81 and
+104-115; `build_octree(progress=True)` passes `echo`)."""
 
 from __future__ import annotations
 
@@ -41,3 +41,17 @@ def timed_phase(phase_times: Optional[dict], key: str,
             phase_times[key] = (
                 phase_times.get(key, 0.0) + time.perf_counter() - t0
             )
+
+
+def parse_aabb(s: str):
+    """'minx,miny,minz,maxx,maxy,maxz' -> Aabb, validating the length (a
+    typo'd count would otherwise broadcast into a silently wrong box)."""
+    from ..math.geometry import Aabb
+
+    v = [float(x) for x in s.split(",")]
+    if len(v) != 6:
+        raise ValueError(
+            f"--aabb needs 6 comma-separated values "
+            f"(minx,miny,minz,maxx,maxy,maxz), got {len(v)}"
+        )
+    return Aabb(v[:3], v[3:])

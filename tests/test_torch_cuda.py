@@ -750,3 +750,73 @@ def test_hbm_probes_on_card(cuda):
     rates = [out[f"hbm_probe_{k}_gbps"] for k in shapes]
     assert all(r > 0 for r in rates) and out["hbm_probe_gbps"] == max(rates)
     assert torch.cuda.get_device_name(cuda).split()[-1] in out["card"]
+
+
+# --- the query filter --------------------------------------------------------
+
+
+def _query_geometries():
+    from point_cloud_viewer_tpu_torch.math.geometry import (
+        Frustum, Isometry, Obb, Perspective)
+
+    obb = Obb(Isometry.from_axis_angle([1, 1, 0], 0.7,
+                                       translation=[1.0, -2.0, 3.0]),
+              np.array([6.0, 4.0, 9.0]))
+    eye = Isometry.from_axis_angle([0, 1, 0], 0.4,
+                                   translation=[0.0, 0.0, 30.0])
+    return obb, Frustum.new(eye, Perspective.from_fov(1.1, 0.9, 1.0, 60.0))
+
+
+@pytest.mark.parametrize("kind", ["obb", "frustum"])
+def test_face_point_masks_on_card_match_cpu_and_host(cuda, kind):
+    """1,048,576 points on the faces: the card's mask (cuBLAS's product,
+    band refined on the host) equals the CPU route's and the host's."""
+    from point_cloud_viewer_tpu_torch import testing
+    from point_cloud_viewer_tpu_torch.query import device_filter as DF
+    from point_cloud_viewer_tpu_torch.query.location import location_for
+
+    obb, frustum = _query_geometries()
+    g = obb if kind == "obb" else frustum
+    make = (testing.obb_face_points if kind == "obb"
+            else testing.frustum_plane_points)
+    pts = make(g, 1 << 20, seed=21)
+    loc = location_for(g)
+    host = loc.contains(pts)
+    stats = DF.FilterStats()
+    card = DF.point_filter_mask(loc, pts, device=cuda, stats=stats)
+    np.testing.assert_array_equal(card, host)
+    np.testing.assert_array_equal(
+        DF.point_filter_mask(loc, pts, device="cpu"), host)
+    assert 0 < stats.uncertain < len(pts)
+
+
+def test_s2_ids_and_masks_on_card_match_cpu_and_host(cuda):
+    """Leaf ids on all six faces with argmax ties and bit 63 set, a cell
+    union with bit-63 ranges and a WebMercatorRect: card, CPU route and
+    host bit for bit; the card's WebMercator margin is calibrated on it."""
+    from point_cloud_viewer_tpu_torch import testing
+    from point_cloud_viewer_tpu_torch.math import s2, s2_device
+    from point_cloud_viewer_tpu_torch.math.web_mercator import (
+        WebMercatorCoord, WebMercatorRect, ecef_to_web_mercator)
+    from point_cloud_viewer_tpu_torch.math.web_mercator_device import (
+        _calibrated_delta)
+    from point_cloud_viewer_tpu_torch.query import device_filter as DF
+    from point_cloud_viewer_tpu_torch.query.location import location_for
+    from point_cloud_viewer_tpu_torch.s2_cells.cell_union import CellUnion
+
+    pts = testing.s2_face_points(1 << 20, seed=22)
+    host = s2.leaf_cell_ids_from_points(pts)
+    for dev in (cuda, torch.device("cpu")):
+        got = s2_device.leaf_ids(torch.from_numpy(pts).to(dev))
+        np.testing.assert_array_equal(got.cpu().numpy().view(np.uint64), host)
+    union = CellUnion([int(c) for c in s2.parent(host[::5000], 9)])
+    assert (union._range_min >= np.uint64(1 << 63)).any()
+    uv = ecef_to_web_mercator(pts[:2])
+    rect = WebMercatorRect(WebMercatorCoord(uv.min(axis=0) - 0.05),
+                           WebMercatorCoord(uv.min(axis=0) + 0.05))
+    for loc in (union, location_for(rect)):
+        want = loc.contains(pts)
+        for dev in (cuda, "cpu"):
+            np.testing.assert_array_equal(
+                DF.point_filter_mask(loc, pts, device=dev), want)
+    assert 1e-9 <= _calibrated_delta(cuda) < 1e-6

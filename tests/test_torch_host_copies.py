@@ -558,3 +558,189 @@ def test_timed_phase_matches_jax(echo, capsys):
         said.append(re.sub(r"\d+\.\d{3}s", "X.XXXs", out.err))
     assert said[0] == said[1]
     assert said[0] == ("" if echo is None else f"{echo}: X.XXXs\n" * 3)
+
+
+# --- the query path's host modules -------------------------------------------------
+
+
+def _packages():
+    """(port, JAX) module namespaces of the query path's host copies."""
+    import importlib
+
+    names = ("math.geometry", "math.sat", "math.intervals", "math.wgs84",
+             "math.web_mercator", "math.s2", "s2_cells.cell_union",
+             "query.location", "protos.meta", "utils.progress")
+    out = []
+    for pkg in ("point_cloud_viewer_tpu_torch", "point_cloud_viewer_tpu"):
+        mods = {n.split(".")[1]: importlib.import_module(f"{pkg}.{n}")
+                for n in names}
+        out.append(type("Mods", (), mods))
+    return out
+
+
+def _query_geometries(M, rng):
+    """An Aabb, an Obb, a Frustum and a WebMercatorRect built by the modules
+    M of either package, from rng's draws."""
+    G = M.geometry
+    iso = G.Isometry.from_axis_angle(rng.normal(size=3), rng.random() * 3,
+                                     translation=rng.normal(size=3) * 5)
+    eye = G.Isometry.from_axis_angle([0, 1, 0], 0.4,
+                                     translation=[0.0, 0.0, 30.0])
+    rect = M.web_mercator.WebMercatorRect.from_zoomed_coordinates(
+        [1000.25, 2000.5], [1003.75, 2002.0], 4)
+    return [G.Aabb(rng.normal(size=3) * 4, rng.normal(size=3) * 4),
+            G.Obb(iso, rng.random(3) * 6 + 0.5),
+            G.Frustum.new(eye, G.Perspective.from_fov(1.1, 0.9, 1.0, 60.0)),
+            rect]
+
+
+def _query_case_geometry_sat_location(P, J, rng):
+    pts = rng.random((20_000, 3)) * 40.0 - 20.0
+    lo = rng.random((3_000, 3)) * 40.0 - 20.0
+    hi = lo + rng.random((3_000, 1)) * 6.0
+    corners = lo[:, None, :] + P.geometry._CORNER_SIGNS * (hi - lo)[:, None]
+    seed = int(rng.integers(1 << 30))
+    for g, w in zip(_query_geometries(P, np.random.default_rng(seed)),
+                    _query_geometries(J, np.random.default_rng(seed))):
+        if not isinstance(g, P.web_mercator.WebMercatorRect):
+            _same(g.contains(pts), w.contains(pts))
+        _same(g.corners(), w.corners())
+        gi, wi = g.intersector(), w.intersector()
+        for f in ("corners", "edges", "face_normals"):
+            _same(getattr(gi, f), getattr(wi, f))
+        ga, wa = gi.cached_axes_for_aabb(), wi.cached_axes_for_aabb()
+        _same(ga.axes, wa.axes)
+        _same(ga.intersect(corners), wa.intersect(corners))
+        _same(ga.intersect_bounds(lo, hi), wa.intersect_bounds(lo, hi))
+        gl, wl = P.location.location_for(g), J.location.location_for(w)
+        _same(gl.intersects_bounds(lo, hi), wl.intersects_bounds(lo, hi))
+        _same(gl.intersects_aabbs(corners), wl.intersects_aabbs(corners))
+        fg, fw = gl.fully_inside_bounds(lo, hi), wl.fully_inside_bounds(lo,
+                                                                          hi)
+        assert (fg is None) == (fw is None)
+        if fg is not None:
+            _same(fg, fw)
+    box = _query_geometries(P, rng)[0]
+    jbox = J.geometry.Aabb(box.mins, box.maxs)
+    iso = P.geometry.Isometry.from_axis_angle([1, 2, 3], 0.5, [1, 2, 3])
+    jiso = J.geometry.Isometry(iso.rotation, iso.translation)
+    _same(box.transform(iso).mins, jbox.transform(jiso).mins)
+    _same(box.to_obb().contains(pts), jbox.to_obb().contains(pts))
+    _same(P.sat.dedup_axes(np.concatenate([pts[:50], -pts[:50]])),
+          J.sat.dedup_axes(np.concatenate([pts[:50], -pts[:50]])))
+    all_p, all_j = P.location.AllPoints(), J.location.AllPoints()
+    _same(all_p.contains(pts), all_j.contains(pts))
+    _same(all_p.fully_inside_bounds(lo, hi), all_j.fully_inside_bounds(lo,
+                                                                       hi))
+
+
+def _query_case_intervals(P, J, rng):
+    values = rng.normal(size=5000).astype(np.float32)
+    for lo, hi in ((-0.5, 0.5), (0.0, 0.0), (-np.inf, 1.0)):
+        _same(P.intervals.ClosedInterval(lo, hi).contains(values),
+              J.intervals.ClosedInterval(lo, hi).contains(values))
+    assert (P.intervals.ClosedInterval.from_str("-1.5,2")
+            == P.intervals.ClosedInterval(-1.5, 2.0))
+    for bad in ("1", "2,1"):
+        with pytest.raises(ValueError) as e_port:
+            P.intervals.ClosedInterval.from_str(bad)
+        with pytest.raises(ValueError) as e_jax:
+            J.intervals.ClosedInterval.from_str(bad)
+        assert str(e_port.value) == str(e_jax.value)
+
+
+def _query_case_wgs84_web_mercator(P, J, rng):
+    lat = rng.uniform(-1.5, 1.5, 5000)
+    lon = rng.uniform(-np.pi, np.pi, 5000)
+    alt = rng.uniform(-500.0, 9000.0, 5000)
+    ecef = P.wgs84.geodetic_to_ecef(lat, lon, alt)
+    _same(ecef, J.wgs84.geodetic_to_ecef(lat, lon, alt))
+    for g, w in zip(P.wgs84.ecef_to_geodetic(ecef),
+                    J.wgs84.ecef_to_geodetic(ecef)):
+        _same(g, w)
+    fp, fj = (m.wgs84.local_frame_from_lat_lng(48.1, 11.6) for m in (P, J))
+    _same(fp.rotation, fj.rotation)
+    _same(fp.translation, fj.translation)
+    _same(P.web_mercator.ecef_to_web_mercator(ecef),
+          J.web_mercator.ecef_to_web_mercator(ecef))
+    uv = rng.random((5000, 2))
+    for g, w in zip(P.web_mercator.web_mercator_to_lat_lng(uv),
+                    J.web_mercator.web_mercator_to_lat_lng(uv)):
+        _same(g, w)
+    for args in (([1.0, 2.0], [3.0, 5.0], 2), ([1.0, 2.0], [3.0, 5.0], 30),
+                 ([500.0, 2.0], [3.0, 5.0], 0), ([3.0, 5.0], [1.0, 2.0], 2)):
+        g = P.web_mercator.WebMercatorRect.from_zoomed_coordinates(*args)
+        w = J.web_mercator.WebMercatorRect.from_zoomed_coordinates(*args)
+        assert (g is None) == (w is None)
+        if g is not None:
+            _same(g.contains(ecef), w.contains(ecef))
+
+
+def _query_case_s2_cell_union(P, J, rng):
+    pts = rng.normal(size=(20_000, 3)) * 6.37e6
+    pts[::7, 0] = pts[::7, 1]
+    leaves = P.s2.leaf_cell_ids_from_points(pts)
+    _same(leaves, J.s2.leaf_cell_ids_from_points(pts))
+    for g, w in zip(P.s2.cell_id_to_face_ij(leaves),
+                    J.s2.cell_id_to_face_ij(leaves)):
+        _same(g, w)
+    levels = rng.integers(0, 30, len(leaves))
+    cells = np.array([P.s2.parent(c, int(lv)) for c, lv in
+                      zip(leaves[:3000], levels[:3000])], dtype=np.uint64)
+    _same(cells, np.array([J.s2.parent(c, int(lv)) for c, lv in
+                           zip(leaves[:3000], levels[:3000])],
+                          dtype=np.uint64))
+    for fn in ("level_of", "range_min", "range_max", "cell_corners_xyz"):
+        _same(getattr(P.s2, fn)(cells), getattr(J.s2, fn)(cells))
+    _same(P.s2.contains(cells, leaves[:3000]),
+          J.s2.contains(cells, leaves[:3000]))
+    assert [P.s2.token(int(c)) for c in cells] == [J.s2.token(int(c))
+                                                    for c in cells]
+    assert P.s2.children(int(cells[5])) == J.s2.children(int(cells[5]))
+    rect_p = P.s2.LatLngRect.from_points(pts[:4] / 1e3 + [6.37e6, 1e5, 2e5])
+    rect_j = J.s2.LatLngRect.from_points(pts[:4] / 1e3 + [6.37e6, 1e5, 2e5])
+    _same(rect_p.intersects_cells(cells), rect_j.intersects_cells(cells))
+    ids = [int(c) for c in cells[:200]]
+    up, uj = P.cell_union.CellUnion(ids), J.cell_union.CellUnion(ids)
+    _same(up.ids, uj.ids)
+    _same(up.contains_cell_ids(leaves), uj.contains_cell_ids(leaves))
+    _same(up.contains(pts), uj.contains(pts))
+    lo = pts[:500] - 5e4
+    _same(up.intersects_bounds(lo, lo + 1e5), uj.intersects_bounds(lo,
+                                                                   lo + 1e5))
+    for g, w in zip(P.cell_union.cell_world_bounds(up.ids),
+                    J.cell_union.cell_world_bounds(uj.ids)):
+        _same(g, w)
+
+
+def _query_case_s2_meta_and_parse_aabb(P, J, rng):
+    cells = [J.meta.S2CellProto(id=int(c), num_points=int(n)) for c, n in zip(
+        rng.integers(0, 2 ** 63, 50, dtype=np.uint64) * np.uint64(2) + np.uint64(1),
+        rng.integers(0, 10 ** 6, 50))]
+    attrs = [J.meta.AttributeProto(name="color", data_type=J.meta.AttributeDataType(3))]
+    raw = J.meta.MetaProto(s2=J.meta.S2MetaProto(cells=cells, attributes=attrs),
+                           bounding_box=J.meta.BoundingBoxProto(
+                               min=(1.0, 2.0, 3.0), max=(4.0, 5.0, 6.0))).encode()
+    got = P.meta.MetaProto.decode(raw)
+    assert got.octree is None and got.encode() == raw
+    assert [(c.id, c.num_points) for c in got.s2.cells] == [
+        (c.id, c.num_points) for c in cells]
+    assert [(a.name, int(a.data_type)) for a in got.s2.attributes] == [
+        ("color", 3)]
+    text = "1,-2,3.5,4,5,-6"
+    g, w = P.progress.parse_aabb(text), J.progress.parse_aabb(text)
+    _same(g.mins, w.mins)
+    _same(g.maxs, w.maxs)
+    with pytest.raises(ValueError) as e_port:
+        P.progress.parse_aabb("1,2,3")
+    with pytest.raises(ValueError) as e_jax:
+        J.progress.parse_aabb("1,2,3")
+    assert str(e_port.value) == str(e_jax.value)
+
+
+@pytest.mark.parametrize("case", [
+    "geometry_sat_location", "intervals", "wgs84_web_mercator",
+    "s2_cell_union", "s2_meta_and_parse_aabb"])
+def test_query_host_copies_match_jax(case):
+    P, J = _packages()
+    globals()[f"_query_case_{case}"](P, J, np.random.default_rng(RNG_SEED))

@@ -65,6 +65,12 @@ _PORT_MODULES = [
     "point_cloud_viewer_tpu_torch.cli.view",
     "point_cloud_viewer_tpu_torch.octree.streaming",
     "point_cloud_viewer_tpu_torch.ops.leaf_levels_cuda",
+    "point_cloud_viewer_tpu_torch.math.s2_device",
+    "point_cloud_viewer_tpu_torch.math.web_mercator_device",
+    "point_cloud_viewer_tpu_torch.query.device_filter",
+    "point_cloud_viewer_tpu_torch.query.client",
+    "point_cloud_viewer_tpu_torch.s2_cells.container",
+    "point_cloud_viewer_tpu_torch.cli.query_points",
 ]
 
 
@@ -279,3 +285,71 @@ def test_deep_and_host_builds_stand_alone(tmp_path):
         print("deep files", len(files))
     """)
     assert "deep files" in out
+
+
+def test_query_stands_alone(tmp_path):
+    """With jax and the JAX package refused: a tiny cloud on and above the
+    WGS84 surface through cli.build_octree (CPU), then cli.query_points
+    with each query flag, the filter on CPU tensors and on the host, the
+    same counts; the client streams the same points both ways."""
+    out = _run_refused(f"""
+        import contextlib, io, os, re
+
+        import numpy as np
+        from point_cloud_viewer_tpu_torch.cli.build_octree import main as build
+        from point_cloud_viewer_tpu_torch.cli.query_points import main as query
+        from point_cloud_viewer_tpu_torch.core.points_batch import PointsBatch
+        from point_cloud_viewer_tpu_torch.math import s2, wgs84
+        from point_cloud_viewer_tpu_torch.math.geometry import Isometry, Obb
+        from point_cloud_viewer_tpu_torch.math.web_mercator import (
+            lat_lng_to_web_mercator)
+        from point_cloud_viewer_tpu_torch.octree.builder import build_octree
+        from point_cloud_viewer_tpu_torch.query.client import PointCloudClient
+        from point_cloud_viewer_tpu_torch.query.point_query import PointQuery
+
+        rng = np.random.default_rng(9)
+        n = 40_000
+        lat = np.deg2rad(47.0 + rng.random(n) * 0.01)
+        lon = np.deg2rad(8.0 + rng.random(n) * 0.01)
+        ecef = wgs84.geodetic_to_ecef(lat, lon, rng.random(n) * 50.0)
+        directory = os.path.join({str(tmp_path)!r}, "site")
+        build_octree(directory, 0.01, PointsBatch(position=ecef, attributes={{
+            "color": rng.integers(0, 256, (n, 3), dtype=np.uint8)}}),
+            device="cpu")
+        mid = ecef.mean(axis=0)
+        tokens = ",".join(s2.token(int(c)) for c in s2.parent(
+            s2.leaf_cell_ids_from_points(ecef[::5000]), 16))
+        z = 17
+        nw = lat_lng_to_web_mercator(np.deg2rad(47.007),
+                                     np.deg2rad(8.002)) * (256 << z)
+        se = lat_lng_to_web_mercator(np.deg2rad(47.002),
+                                     np.deg2rad(8.006)) * (256 << z)
+        flags = [["--aabb", ",".join(str(float(v)) for v in
+                                     [*(mid - 300.0), *(mid + 200.0)])],
+                 ["--cell_union", tokens],
+                 ["--web_mercator_rect",
+                  ",".join(str(float(v)) for v in [*nw, *se]) + f",{{z}}"]]
+        counts = []
+        for extra in flags:
+            said = []
+            for route in (["--device", "cpu"], ["--no-device_filter"]):
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    assert query([directory, *extra, *route]) == 0
+                said.append(int(re.search(r"Streamed (\\d+)",
+                                          buf.getvalue()).group(1)))
+            assert said[0] == said[1] and 0 < said[0] < n, (extra, said)
+            counts.append(said[0])
+        frame = Isometry(np.eye(3), mid)
+        q = PointQuery(attributes=["color"],
+                       location=Obb(frame, np.array([250.0, 150.0, 40.0])))
+        got = []
+        for kwargs in ({{"device": "cpu"}}, {{"device_filter": False}}):
+            client = PointCloudClient.from_locations([directory], **kwargs)
+            pos = np.concatenate([b.position for b in client.stream(q)])
+            got.append(pos[np.lexsort(pos.T)])
+        assert got[0].tobytes() == got[1].tobytes() and len(got[0])
+        assert_nothing_refused_loaded()
+        print("query counts", counts, len(got[0]))
+    """)
+    assert "query counts" in out

@@ -1,0 +1,361 @@
+"""The port's per-point query filter (query/device_filter.py,
+math/s2_device.py, math/web_mercator_device.py) on CPU tensors, against
+the JAX package's point_filter_mask and the host contains() masks.  Inputs
+are made from seeds with numpy; every comparison is bit-equality.
+
+The JAX package's OBB and frustum masks are bit-equal to the host only
+away from the faces (its `p @ rot_t + translation` rounds unlike numpy's
+BLAS); on face points the port is held to the host alone, and the JAX
+package's count of differing points is printed, not asserted."""
+
+import numpy as np
+import pytest
+import torch
+from jax._src.config import enable_x64
+
+import point_cloud_viewer_tpu.math.geometry as JG
+import point_cloud_viewer_tpu.math.s2 as JS2
+import point_cloud_viewer_tpu.math.web_mercator as JWM
+import point_cloud_viewer_tpu.math.wgs84 as JW84
+import point_cloud_viewer_tpu_torch.math.geometry as PG
+import point_cloud_viewer_tpu_torch.math.s2 as PS2
+import point_cloud_viewer_tpu_torch.math.web_mercator as PWM
+from point_cloud_viewer_tpu.math.intervals import ClosedInterval as JInterval
+from point_cloud_viewer_tpu.math.s2_device import _leaf_ids as jax_leaf_ids
+from point_cloud_viewer_tpu.query import device_filter as JDF
+from point_cloud_viewer_tpu.query.location import AllPoints as JAll
+from point_cloud_viewer_tpu.query.location import location_for as jax_loc
+from point_cloud_viewer_tpu.s2_cells.cell_union import CellUnion as JUnion
+from point_cloud_viewer_tpu_torch import testing
+from point_cloud_viewer_tpu_torch.math import s2_device
+from point_cloud_viewer_tpu_torch.math.intervals import ClosedInterval
+from point_cloud_viewer_tpu_torch.math.web_mercator_device import (
+    _calibrated_delta,
+    rect_contains_device,
+)
+from point_cloud_viewer_tpu_torch.query import device_filter as DF
+from point_cloud_viewer_tpu_torch.query.location import AllPoints
+from point_cloud_viewer_tpu_torch.query.location import location_for
+from point_cloud_viewer_tpu_torch.s2_cells.cell_union import CellUnion
+
+KINDS = ["all", "box", "obb", "frustum", "cell_union", "web_mercator"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Small tensor ops: one intra-op thread beside the other workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _uniform_points(n=50_000):
+    """tests/test_device_filter.py's `points` fixture."""
+    return np.random.default_rng(31).random((n, 3)) * 40.0 - 20.0
+
+
+def _earth_points(n, seed):
+    """tests/test_device_filter.py's _earth_points: all six S2 faces in the
+    WGS84 radius band, plus face-boundary directions and poles."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    special = np.array([
+        [1.0, 1.0, 0.0], [1.0, -1.0, 0.0], [0.0, 1.0, 1.0],
+        [1.0, 1.0, 1.0], [-1.0, -1.0, -1.0],
+        [1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0],
+        [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0], [0.0, 0.0, -1.0],
+    ]) * 6.37e6
+    return np.concatenate([d * rng.uniform(6.35e6, 6.39e6, (n, 1)), special])
+
+
+def _rect(WM):
+    return WM.WebMercatorRect(WM.WebMercatorCoord(np.array([0.52, 0.30])),
+                              WM.WebMercatorCoord(np.array([0.55, 0.33])))
+
+
+def _rect_interior_points(n, pad=0.1):
+    """ECEF points whose projection falls inside _rect."""
+    rng = np.random.default_rng(3)
+    rect = _rect(JWM)
+    nw, se = rect.north_west.normalized, rect.south_east.normalized
+    uv = nw + (se - nw) * (pad + (1 - 2 * pad) * rng.random((n, 2)))
+    lat, lon = JWM.web_mercator_to_lat_lng(uv)
+    return JW84.geodetic_to_ecef(lat, lon, rng.uniform(-100, 5000, n))
+
+
+def _geometry(G, kind):
+    """tests/test_device_filter.py's box, OBB and frustum, built by the
+    geometry module G of either package."""
+    if kind == "box":
+        return G.Aabb(np.array([-5.0, -3.0, -8.0]), np.array([7.0, 9.0, 2.0]))
+    if kind == "obb":
+        return G.Obb(G.Isometry.from_axis_angle(
+            [1, 1, 0], 0.7, translation=[1.0, -2.0, 3.0]),
+            np.array([6.0, 4.0, 9.0]))
+    eye = G.Isometry.from_axis_angle([0, 1, 0], 0.4,
+                                     translation=[0.0, 0.0, 30.0])
+    return G.Frustum.new(eye, G.Perspective.from_fov(1.1, 0.9, 1.0, 60.0))
+
+
+def _case(kind):
+    """-> (points, port location, JAX location) for a query kind."""
+    if kind == "all":
+        return _uniform_points(), AllPoints(), JAll()
+    if kind in ("box", "obb", "frustum"):
+        return (_uniform_points(), location_for(_geometry(PG, kind)),
+                jax_loc(_geometry(JG, kind)))
+    if kind == "cell_union":
+        pts = _earth_points(30_000, seed=7)
+        ids = [int(c) for c in JS2.parent(
+            JS2.leaf_cell_ids_from_points(pts[:5]), 6)]
+        return pts, CellUnion(ids), JUnion(ids)
+    pts = np.concatenate([_rect_interior_points(2_000),
+                          _earth_points(20_000, seed=5)])
+    return pts, location_for(_rect(PWM)), jax_loc(_rect(JWM))
+
+
+def _intervals(n, seed):
+    """An intensity attribute and its interval, in each package's type."""
+    values = (np.random.default_rng(seed).random(n) * 100.0).astype(
+        np.float32)
+    return ({"intensity": values}, {"intensity": ClosedInterval(20.0, 60.0)},
+            {"intensity": JInterval(20.0, 60.0)})
+
+
+@pytest.mark.parametrize("with_intervals", [False, True])
+@pytest.mark.parametrize("kind", KINDS)
+def test_mask_matches_jax_and_host(kind, with_intervals):
+    pts, loc, jloc = _case(kind)
+    attrs, ivs, jivs = (_intervals(len(pts), 5) if with_intervals
+                        else ({}, None, None))
+    stats = DF.FilterStats()
+    got = DF.point_filter_mask(loc, pts, intervals=ivs, attributes=attrs,
+                               device="cpu", stats=stats)
+    host = loc.contains(pts)
+    jax_host = jloc.contains(pts)
+    if with_intervals:
+        host = host & ivs["intensity"].contains(attrs["intensity"])
+        jax_host = jax_host & jivs["intensity"].contains(attrs["intensity"])
+    np.testing.assert_array_equal(host, jax_host)
+    assert got.dtype == bool and got.shape == (len(pts),)
+    np.testing.assert_array_equal(got, host)
+    np.testing.assert_array_equal(
+        got, JDF.point_filter_mask(jloc, pts, intervals=jivs,
+                                   attributes=attrs))
+    if kind != "all":
+        assert 0 < host.sum() < len(pts), "degenerate fixture"
+    assert stats.rows == (0 if kind == "all" and not with_intervals
+                          else len(pts))
+
+
+@pytest.mark.parametrize("n", [1, 3, 511, 512, 513, 700])
+def test_padding_boundaries_bit_equal(n):
+    """tests/test_device_filter.py's padding sizes (the JAX package pads to
+    powers of two; the port does not pad)."""
+    pts = _uniform_points()[:n]
+    attrs, ivs, jivs = _intervals(n, 11)
+    for kind in ("box", "obb", "frustum"):
+        loc, jloc = location_for(_geometry(PG, kind)), jax_loc(
+            _geometry(JG, kind))
+        host = loc.contains(pts) & ivs["intensity"].contains(
+            attrs["intensity"])
+        got = DF.point_filter_mask(loc, pts, intervals=ivs, attributes=attrs,
+                                   device="cpu")
+        assert got.shape == (n,)
+        np.testing.assert_array_equal(got, host)
+        np.testing.assert_array_equal(
+            got, JDF.point_filter_mask(jloc, pts, intervals=jivs,
+                                       attributes=attrs))
+
+
+def test_leaf_ids_match_jax_on_all_faces():
+    """Ids on all six faces, argmax ties (|x| == |y|, |y| == |z|,
+    |x| == |z|), cube diagonals and axes; faces 4-5 set bit 63."""
+    pts = np.concatenate([testing.s2_face_points(40_000, seed=2),
+                          _earth_points(20_000, seed=3)])
+    got = s2_device.leaf_ids(torch.from_numpy(pts)).numpy().view(np.uint64)
+    with enable_x64(True):
+        want = np.asarray(jax_leaf_ids(np.asarray(pts)))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, PS2.leaf_cell_ids_from_points(pts))
+    faces = (got >> np.uint64(61)).astype(int)
+    assert sorted(set(faces)) == list(range(6))
+    assert (got >= np.uint64(1 << 63)).sum() > 1000
+    a = np.abs(pts)
+    assert ((a[:, 0] == a[:, 1]) | (a[:, 1] == a[:, 2])).sum() > 10_000
+
+
+def test_cell_union_with_bit63_ranges():
+    """A union of face 4's level-0 cell, level-8 and level-14 cells on face
+    5 and a level-8 cell on face 0: range ends with and without bit 63."""
+    pts = testing.s2_face_points(30_000, seed=6)
+    leaves = PS2.leaf_cell_ids_from_points(pts)
+    face = leaves >> np.uint64(61)
+    on5 = leaves[face == 5]
+    ids = [(4 << 61) | (1 << 60)]
+    ids += [int(c) for c in PS2.parent(on5[:3], 8)]
+    ids += [int(c) for c in PS2.parent(on5[3:6], 14)]
+    ids += [int(PS2.parent(leaves[face == 0][:1], 8)[0])]
+    union = CellUnion(ids)
+    assert (union._range_min >= np.uint64(1 << 63)).any()
+    assert (union._range_max < np.uint64(1 << 63)).any()
+    host = union.contains(pts)
+    got = DF.point_filter_mask(union, pts, device="cpu")
+    np.testing.assert_array_equal(got, host)
+    np.testing.assert_array_equal(got, JUnion(ids).contains(pts))
+    np.testing.assert_array_equal(
+        got, JDF.point_filter_mask(JUnion(ids), pts))
+    assert 0 < host.sum() < len(pts)
+
+
+def _face_points(kind, n, seed):
+    g = _geometry(PG, kind)
+    make = (testing.obb_face_points if kind == "obb"
+            else testing.frustum_plane_points)
+    return g, make(g, n, seed)
+
+
+@pytest.mark.parametrize("kind", ["obb", "frustum"])
+def test_face_points_match_host(kind):
+    """100,000 points on the faces (most exactly on one, the rest a few
+    ulps to 1e-7 off it): the port equals the host mask; the JAX package's
+    mismatch count is printed."""
+    g, pts = _face_points(kind, 100_000, seed=13)
+    loc = location_for(g)
+    host = loc.contains(pts)
+    stats = DF.FilterStats()
+    got = DF.point_filter_mask(loc, pts, device="cpu", stats=stats)
+    np.testing.assert_array_equal(got, host)
+    assert 0 < host.sum() < len(pts)
+    assert 0 < stats.uncertain < len(pts) and stats.refined == len(pts)
+    jax_diff = int((JDF.point_filter_mask(
+        jax_loc(_geometry(JG, kind)), pts) != host).sum())
+    print(f"{kind}: the JAX package's mask differs from the host in "
+          f"{jax_diff} of {len(pts)} face points")
+
+
+def _reordered_affine(p, m_t, b):
+    """p @ m_t + b summed in another order: z and y terms first, then b,
+    then the x term."""
+    out = p[:, 2:3] * m_t[2] + p[:, 1:2] * m_t[1]
+    return (out + b) + p[:, 0:1] * m_t[0]
+
+
+@pytest.mark.parametrize("kind", ["obb", "frustum"])
+def test_band_restores_host_mask_under_another_rounding(kind, monkeypatch):
+    """With the device-side transform summed in another order, its raw mask
+    differs from the host's on face points; every row the band calls
+    definitely in or out agrees with the host, and the refined mask
+    equals it."""
+    g, pts = _face_points(kind, 60_000, seed=17)
+    host = g.contains(pts)
+    p = torch.from_numpy(pts)
+    if kind == "obb":
+        iso = g.obb_from_query
+        args = (torch.from_numpy(iso.rotation.T.copy()),
+                torch.from_numpy(iso.translation))
+        raw = (_reordered_affine(p, *args).abs()
+               <= torch.from_numpy(g.half_extent)).all(dim=1).numpy()
+        classify = lambda: DF._obb_classify(  # noqa: E731
+            p, *args, torch.from_numpy(g.half_extent))
+    else:
+        m = torch.from_numpy(g.clip_from_query)
+        qw = _reordered_affine(p, m[:, :3].T, m[:, 3])
+        clip = qw[:, :3] / qw[:, 3:]
+        raw = ((clip > -1.0) & (clip < 1.0)).all(dim=1).numpy()
+        classify = lambda: DF._frustum_classify(p, m)  # noqa: E731
+    assert (raw != host).sum() > 100
+    monkeypatch.setattr(DF, "_affine", _reordered_affine)
+    definite_in, uncertain = (t.numpy() for t in classify())
+    definite_out = ~definite_in & ~uncertain
+    assert host[definite_in].all() and not host[definite_out].any()
+    assert definite_in.sum() > 1000 and definite_out.sum() > 1000
+    got = DF.point_filter_mask(location_for(g), pts, device="cpu")
+    np.testing.assert_array_equal(got, host)
+
+
+def test_non_finite_rows_go_to_the_host():
+    """NaN and infinite coordinates land in the band; the host decides."""
+    pts = _uniform_points(2_000)
+    pts[::7, 1] = np.nan
+    pts[3::11, 0] = np.inf
+    pts[5::13, 2] = -np.inf
+    for kind in ("obb", "frustum"):
+        loc = location_for(_geometry(PG, kind))
+        with np.errstate(invalid="ignore"):
+            host = loc.contains(pts)
+            got = DF.point_filter_mask(loc, pts, device="cpu")
+        np.testing.assert_array_equal(got, host)
+
+
+def test_calibrated_delta_on_the_cpu():
+    assert 1e-9 <= _calibrated_delta(torch.device("cpu")) < 1e-6
+
+
+def test_web_mercator_boundary_band_bit_equal():
+    """tests/test_device_filter.py's boundary band: points on the rect's
+    edges and 1e-12 either side, through rect_contains_device and the
+    filter."""
+    rect = _rect(PWM)
+    nw, se = rect.north_west.normalized, rect.south_east.normalized
+    rng = np.random.default_rng(17)
+    us = np.concatenate([np.repeat([nw[0], se[0]], 40),
+                         rng.uniform(nw[0], se[0], 80)])
+    vs = np.concatenate([rng.uniform(nw[1], se[1], 80),
+                         np.repeat([nw[1], se[1]], 40)])
+    for nudge in (0.0, 1e-12, -1e-12):
+        lat, lon = JWM.web_mercator_to_lat_lng(
+            np.stack([us + nudge, vs], axis=-1))
+        pts = JW84.geodetic_to_ecef(lat, lon, 0.0)
+        host = rect.contains(pts)
+        np.testing.assert_array_equal(
+            rect_contains_device(rect, pts, device="cpu"), host)
+        np.testing.assert_array_equal(
+            DF.point_filter_mask(location_for(rect), pts, device="cpu"),
+            host)
+
+
+def test_host_only_queries_return_none():
+    """A custom location type, a missing, non-scalar or non-numeric filter
+    attribute and an empty cell union go to the host path (None), as in
+    the JAX package; the host path then raises as it does there."""
+    from point_cloud_viewer_tpu_torch.core.points_batch import PointsBatch
+    from point_cloud_viewer_tpu_torch.query.point_query import PointQuery
+
+    class CustomLocation:
+        def contains(self, p):
+            return np.ones(len(p), dtype=bool)
+
+        def intersects_aabbs(self, corners):
+            return np.ones(len(corners), dtype=bool)
+
+    pts = _uniform_points(100)
+    loc = location_for(_geometry(PG, "box"))
+    assert DF.point_filter_mask(CustomLocation(), pts, device="cpu") is None
+    assert DF.point_filter_mask(CellUnion([]), pts, device="cpu") is None
+    for attrs in ({}, {"v": np.zeros((100, 3))},
+                  {"v": np.array(["a"] * 100)}):
+        assert DF.point_filter_mask(
+            loc, pts, intervals={"v": ClosedInterval(0.0, 1.0)},
+            attributes=attrs, device="cpu") is None
+    query = PointQuery(attributes=[], location=_geometry(PG, "box"),
+                       filter_intervals={"v": ClosedInterval(0.0, 1.0)})
+    with pytest.raises(KeyError):
+        query.filter_batch(PointsBatch(position=pts), use_device=True,
+                           device="cpu")
+
+
+def test_cuda_without_a_card_raises(monkeypatch):
+    """The filter asks for CUDA by default and never falls back to the CPU:
+    without a card, the mask and the client raise; the host path runs."""
+    from point_cloud_viewer_tpu_torch.query.client import PointCloudClient
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    loc = location_for(_geometry(PG, "obb"))
+    with pytest.raises(RuntimeError, match="is_available"):
+        DF.point_filter_mask(loc, _uniform_points(10))
+    with pytest.raises(RuntimeError, match="is_available"):
+        PointCloudClient([])
+    assert PointCloudClient([], device_filter=False).device is None
