@@ -107,6 +107,23 @@ Phases (any failure raises and the exit code is non-zero):
                 faces and on the frustum's planes, and S2 points on face
                 boundaries (argmax ties, bit 63 set), masks and leaf ids on
                 the card against device="cpu" and the host, bit for bit;
+  11. xray (run after 10) -- phase 5's octree through
+                cli.build_xray_quadtree at 256 px tiles of 0.05 m (256
+                leaf tiles at level 4; the reference's 0.01 m, 16,384
+                leaves, is cut for the time limit) in four strategies on
+                the card (splat and filter) and by the host route: xray,
+                colored and colored_with_intensity byte-equal, the height
+                stddev (full-f64 heights) within 1 per channel with the
+                pixels that differ counted; colored binned byte-equal;
+                heights on a 1/64 m step byte-equal to the numpy route; the
+                four splat reductions on the card against their CPU route
+                at 8M points (256 and 1448 px, and empty) bit for bit; four
+                level-1 partial builds merged by cli.merge_xray_quadtrees
+                into the full build's node set; cli.upgrade_xray_quadtree
+                (v3 kept, v2 rewritten) and cli.inpaint_xray_quadtree (the
+                full build, and a level-3 subtree with a transparent
+                background whose holes it fills), every tile decoding;
+                walls, tiles and points splatted; no launch of K1-K7;
   8. probe + bounds -- K7 (copy, triad, add3) against its plain version
                 at 128,000,000 and ragged n, bit for bit; the streaming-
                 bandwidth probes (hbm_probes: add_1d, add_2d, copy, triad,
@@ -170,6 +187,18 @@ QUERY_ALT = (-100.0, 500.0)          # phase 10: altitudes (m)
 QUERY_RESOLUTION = 0.01              # phase 10: 1 cm (depth cap 21)
 QUERY_ZOOM = 12                      # phase 10: --web_mercator_rect zoom
 QUERY_FACE_POINTS = 1 << 20          # phase 10b: adversarial points
+XRAY_TILE = 256                      # phase 11: tile size (px)
+XRAY_RESOLUTION = 0.05               # phase 11: m a pixel (reference: 0.01)
+XRAY_STRATEGIES = (                  # phase 11a: strategy, its flags
+    ("xray", []),
+    ("colored", []),
+    ("colored_with_intensity", ["--min_intensity=-1", "--max_intensity=1"]),
+    ("colored_with_height_stddev", ["--max_stddev", "0.5"]),
+)
+XRAY_BINNING = "intensity=0.125"     # phase 11b: colored, binned
+XRAY_HEIGHT_POINTS = 4_000_000       # phase 11c: points on a 1/64 m step
+XRAY_SPLAT_POINTS = 8_000_000        # phase 11d: the reductions' input
+XRAY_INPAINT_ROOT = "r000"           # phase 11f: a level-3 subtree
 # f32 rate outside the tensor cores, NVIDIA H100 SXM data sheet (an FMA
 # counts two operations), at the 700 W power limit.
 FP32_PEAK_OPS = 67e12
@@ -2012,6 +2041,337 @@ def phase_query(wrappers: dict, tmp: str) -> None:
     log(f"query: phase 10 took {time.perf_counter() - t_phase:.3f} s")
 
 
+# --- phase 11: the x-ray quadtree path -----------------------------------
+
+
+def run_xray_cli(name: str, args: list, wrappers: dict, what: str) -> tuple:
+    """The port's cli.<name> main on args, the launch counters set to 0
+    just before -> (what it printed, wall s, the build's stats).  Raises
+    when it fails or when a kernel of K1-K7 was launched."""
+    cli = importlib.import_module(f"point_cloud_viewer_tpu_torch.cli.{name}")
+    for w in wrappers.values():
+        w.launches = 0
+    stats = {}
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = (cli.main(args, stats=stats) if name == "build_xray_quadtree"
+              else cli.main(args))
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"xray {what}: cli.{name} {args} returned {rc}: "
+                             f"{buf.getvalue()}")
+    launched = {k: w.launches for k, w in wrappers.items() if w.launches}
+    if launched:
+        raise AssertionError(f"xray {what}: cli.{name} launched kernels of "
+                             f"K1-K7 {launched}")
+    return buf.getvalue(), wall, stats
+
+
+def xray_build(octree_dir: str, out: str, kind: str, flags: list,
+               wrappers: dict, what: str, host: bool = False) -> dict:
+    """cli.build_xray_quadtree of `kind` over octree_dir on DEVICE (the
+    CLI's defaults: splat and filter there), or by the host route
+    (--no-use_device --no-device_filter) -> its stats and wall ("wall")."""
+    route = (["--no-use_device", "--no-device_filter"] if host else
+             ["--device", DEVICE])
+    said, wall, stats = run_xray_cli("build_xray_quadtree", [
+        octree_dir, "--output_directory", out, "--coloring_strategy", kind,
+        "--tile_size", str(XRAY_TILE), "--resolution", str(XRAY_RESOLUTION),
+        *flags, *route], wrappers, what)
+    if f"with {stats['tiles']} tiles" not in said:
+        raise AssertionError(f"xray {what}: cli said {said!r}, stats "
+                             f"{stats}")
+    return dict(stats, wall=wall)
+
+
+def decode_tiles(directory: str) -> dict:
+    """{file name: (size, size, 4) u8 array} of every PNG in directory,
+    decoded with PIL; raises naming the tile that does not decode."""
+    from PIL import Image
+
+    tiles = {}
+    for name in sorted(os.listdir(directory)):
+        if name.endswith(".png"):
+            try:
+                tiles[name] = np.asarray(Image.open(
+                    os.path.join(directory, name)).convert("RGBA"))
+            except Exception as e:  # noqa: BLE001 - re-raised with the tile
+                raise AssertionError(f"{directory}/{name} does not decode: "
+                                     f"{e}") from e
+    return tiles
+
+
+def xray_within_one(a: str, b: str, what: str) -> tuple:
+    """Two builds of one quadtree: equal file sets and meta.pb, every tile's
+    decoded pixels within 1 per channel -> (tiles, pixels that differ, the
+    largest difference)."""
+    from point_cloud_viewer_tpu_torch import testing
+
+    fa, fb = sorted(os.listdir(a)), sorted(os.listdir(b))
+    if fa != fb:
+        raise AssertionError(f"xray {what}: file sets differ: {len(fa)} vs "
+                             f"{len(fb)} ({sorted(set(fa) ^ set(fb))[:5]})")
+    with open(os.path.join(a, "meta.pb"), "rb") as f:
+        meta = f.read()
+    with open(os.path.join(b, "meta.pb"), "rb") as f:
+        if f.read() != meta:
+            raise AssertionError(f"xray {what}: meta.pb differs")
+    ta, tb = decode_tiles(a), decode_tiles(b)
+    pixels = most = 0
+    for name, img in ta.items():
+        n, m = testing.image_difference(img, tb[name])
+        if m > 1:
+            raise AssertionError(f"xray {what}: tile {name} differs by {m} "
+                                 f"in a channel ({n} pixels)")
+        pixels += n
+        most = max(most, m)
+    return len(ta), pixels, most
+
+
+def xray_line(s: dict) -> str:
+    return (f"{s['wall']:.3f} s ({s['leaf_tiles']} leaf tiles, {s['tiles']} "
+            f"tiles, {s['points']} points splatted; leaves "
+            f"{s['leaves_s']:.3f} s, pyramid {s['pyramid_s']:.3f} s)")
+
+
+def phase_xray(wrappers: dict, tmp: str, octree_dir: str) -> None:
+    """11: the x-ray quadtree path on phase 5's in-core octree (16M points;
+    a 200 x 200 x 40 m box and its clusters) at XRAY_TILE px tiles of
+    XRAY_RESOLUTION m a pixel: the cloud fits 16 x 16 tiles of 12.8 m, so
+    256 leaf tiles at level 4, every one holding points, 341 tiles with the
+    pyramid.  The reference's default pixel, 0.01 m, gives 16,384 leaf
+    tiles at level 7; the depth is cut for the smoke's time limit only.
+    a. Each of XRAY_STRATEGIES through cli.build_xray_quadtree on the card
+       (its defaults: splat and filter on the card) and by its host route
+       (--no-use_device --no-device_filter): xray, colored and
+       colored_with_intensity byte-equal; colored_with_height_stddev (full
+       f64 heights, summed in no fixed order on the card) with equal file
+       sets and meta.pb and every pixel within 1 per channel, the pixels
+       that differ counted.
+    b. colored binned by XRAY_BINNING, card against host, byte-equal.
+    c. HeightStddevStrategy on XRAY_HEIGHT_POINTS synthetic points whose z
+       lies on a 1/64 m step (the exactness condition), card against the
+       numpy route at XRAY_TILE px, byte-equal; with z off any step,
+       within 1.
+    d. The four reductions on the card against their CPU route at
+       XRAY_SPLAT_POINTS points at XRAY_TILE and 1448 px and on the empty
+       input, bit for bit under the condition; 1449 px refused on both.
+    e. Partial builds of the four level-1 quadrants (--root_node_id) on
+       the card, merged by cli.merge_xray_quadtrees: the full build's node
+       set.
+    f. cli.upgrade_xray_quadtree on the full build (at version 3: left as
+       is) and on a copy whose meta.pb is at version 2 (rewritten to the
+       full build's bytes); cli.inpaint_xray_quadtree on the full build
+       (its white background leaves no holes, so this runs the stitching,
+       seams and pyramid over every leaf) and on a partial build of the
+       level-3 subtree XRAY_INPAINT_ROOT (4 leaf tiles) built and
+       inpainted with a transparent background, whose holes it fills: the
+       fewer transparent leaf pixels after.  The numpy inpaint takes
+       seconds a 512 px stitched tile with holes, too long for the full
+       build's 256 leaves within the smoke's time limit.  Every tile
+       written decodes.
+    Every x-ray CLI runs with the launch counters set to 0 and launches
+    none of K1-K7.  Walls, tiles written and points splatted of every
+    build.  Removes its files."""
+    import torch
+
+    from point_cloud_viewer_tpu_torch import testing
+    from point_cloud_viewer_tpu_torch.protos.xray_meta import XrayMetaProto
+    from point_cloud_viewer_tpu_torch.xray import device_splat as DS
+    from point_cloud_viewer_tpu_torch.xray.meta import XrayMeta
+
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "xray")
+    full = os.path.join(root, "card_xray")
+    for kind, flags in XRAY_STRATEGIES + (
+            ("colored", ["--binning", XRAY_BINNING]),):
+        label = kind + (" binned" if "--binning" in flags else "")
+        tag = label.replace(" ", "_")
+        card_dir = os.path.join(root, f"card_{tag}")
+        host_dir = os.path.join(root, f"host_{tag}")
+        card = xray_build(octree_dir, card_dir, kind, flags, wrappers,
+                          f"{label} on the card")
+        host = xray_build(octree_dir, host_dir, kind, flags, wrappers,
+                          f"{label} by the host route", host=True)
+        if card["points"] != host["points"]:
+            raise AssertionError(f"xray {label}: {card['points']} points "
+                                 f"splatted on the card, {host['points']} "
+                                 f"by the host route")
+        if kind == "colored_with_height_stddev":
+            tiles, pixels, most = xray_within_one(card_dir, host_dir, label)
+            same = (f"{tiles} tiles decoded, meta.pb equal, {pixels} pixels "
+                    f"differ, by at most {most} (full-f64 heights)")
+        else:
+            try:
+                same = f"{dirs_byte_equal(card_dir, host_dir)} files " \
+                       "byte-equal"
+            except AssertionError as e:
+                raise AssertionError(f"xray {label}: card vs host route: "
+                                     f"{e}") from e
+        log(f"xray {label}: card {xray_line(card)}; host route "
+            f"{xray_line(host)}; card/host {card['wall'] / host['wall']:.3f}"
+            f"; {same}")
+        shutil.rmtree(host_dir)
+        if card_dir != full:
+            shutil.rmtree(card_dir)
+    if len(decode_tiles(full)) != len(XrayMeta.from_directory(full).nodes):
+        raise AssertionError("xray: the full build's tiles and meta differ")
+
+    # c. The exactness condition for heights: z on a 1/64 m step.
+    kwargs = {"max_stddev": 0.5}
+    for step in (1.0 / 64.0, None):
+        batches = [testing.xray_points(XRAY_HEIGHT_POINTS // 2, seed, step)
+                   for seed in (31, 32)]
+        t0 = time.perf_counter()
+        card = testing.xray_render("colored_with_height_stddev", kwargs,
+                                   batches, XRAY_TILE, dev)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = testing.xray_render("colored_with_height_stddev", kwargs,
+                                   batches, XRAY_TILE, None)
+        host_s = time.perf_counter() - t0
+        pixels, most = testing.image_difference(card, want)
+        if step is not None and card.tobytes() != want.tobytes():
+            raise AssertionError(f"xray heights on a 1/64 m step: the card's "
+                                 f"tile differs from the numpy route's in "
+                                 f"{pixels} pixels, by up to {most}")
+        if most > 1:
+            raise AssertionError(f"xray full-f64 heights: {pixels} pixels "
+                                 f"differ, by up to {most}")
+        log(f"xray heights {'on a 1/64 m step' if step else 'in full f64'}: "
+            f"{XRAY_HEIGHT_POINTS} points at {XRAY_TILE} px, card "
+            f"{card_s:.3f} s, numpy route {host_s:.3f} s; "
+            + ("byte-equal" if step else
+               f"{pixels} pixels differ, by at most {most}"))
+
+    # d. The four reductions, card against CPU route.
+    for n, size in ((XRAY_SPLAT_POINTS, XRAY_TILE), (XRAY_SPLAT_POINTS, 1448),
+                    (0, XRAY_TILE), (0, 1448)):
+        inputs = testing.xray_splat_inputs(n, size, seed=33)
+        testing.xray_splat_outputs(inputs, size, dev)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = testing.xray_splat_outputs(inputs, size, dev)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = testing.xray_splat_outputs(inputs, size, "cpu")
+        cpu_s = time.perf_counter() - t0
+        differ = testing.xray_splat_differences(got, want)
+        if differ:
+            raise AssertionError(f"xray reductions at n={n}, {size} px: the "
+                                 f"card differs from the CPU route in "
+                                 f"{differ}")
+        log(f"xray reductions: n={n} at {size} px, card == CPU route bit "
+            f"for bit (the four, the moments of heights and of intensities; "
+            f"wall of all five calls, host clock with upload and fetch: "
+            f"card {card_s:.3f} s, CPU {cpu_s:.3f} s)")
+        del inputs, got, want
+    for d in (dev, "cpu"):
+        try:
+            DS.xray_occupancy_device(np.array([7]), 1449, d)
+        except ValueError:
+            continue
+        raise AssertionError(f"xray: occupancy at 1449 px not refused on {d}")
+
+    # e. Partial builds of the four level-1 quadrants, merged.
+    parts = []
+    t0 = time.perf_counter()
+    points = 0
+    for q in range(4):
+        parts.append(os.path.join(root, f"part{q}"))
+        s = xray_build(octree_dir, parts[-1], "xray",
+                       ["--root_node_id", f"r{q}"], wrappers,
+                       f"partial build r{q}")
+        points += s["points"]
+    parts_s = time.perf_counter() - t0
+    merged = os.path.join(root, "merged")
+    said, merge_s, _ = run_xray_cli("merge_xray_quadtrees",
+                                    [*parts, "--output_directory", merged],
+                                    wrappers, "merge")
+    want = XrayMeta.from_directory(full).nodes
+    got = XrayMeta.from_directory(merged).nodes
+    if got != want:
+        raise AssertionError(f"xray merge: {len(got)} nodes, the full build "
+                             f"{len(want)} ({len(got ^ want)} differ)")
+    tiles = decode_tiles(merged)
+    equal = sum(1 for name, img in decode_tiles(full).items()
+                if name in tiles and img.tobytes() == tiles[name].tobytes())
+    log(f"xray merge: four level-1 partial builds on the card "
+        f"{parts_s:.3f} s ({points} points splatted), "
+        f"cli.merge_xray_quadtrees {merge_s:.3f} s: {len(got)} nodes == the "
+        f"full build's; {len(tiles)} tiles decode, {equal} of them "
+        f"pixel-equal to the full build's; said "
+        f"{said.strip().splitlines()[-1]!r}")
+    for d in parts + [merged]:
+        shutil.rmtree(d)
+
+    # f. Upgrade and inpaint.
+    with open(os.path.join(full, "meta.pb"), "rb") as f:
+        meta_v3 = f.read()
+    said, up_s, _ = run_xray_cli("upgrade_xray_quadtree", [full], wrappers,
+                                 "upgrade at version 3")
+    with open(os.path.join(full, "meta.pb"), "rb") as f:
+        if f.read() != meta_v3 or "already at version 3" not in said:
+            raise AssertionError(f"xray upgrade: a version 3 meta.pb was "
+                                 f"changed: {said}")
+    old = os.path.join(root, "v2")
+    os.makedirs(old)
+    proto = XrayMetaProto.decode(meta_v3)
+    proto.version = 2
+    with open(os.path.join(old, "meta.pb"), "wb") as f:
+        f.write(proto.encode())
+    said2, up2_s, _ = run_xray_cli("upgrade_xray_quadtree", [old], wrappers,
+                                   "upgrade from version 2")
+    with open(os.path.join(old, "meta.pb"), "rb") as f:
+        if f.read() != meta_v3:
+            raise AssertionError(f"xray upgrade: version 2 -> 3 did not give "
+                                 f"the full build's meta.pb: {said2}")
+    painted = os.path.join(root, "inpainted")
+    said3, paint_s, _ = run_xray_cli(
+        "inpaint_xray_quadtree", [full, "--output_directory", painted],
+        wrappers, "inpaint of the full build")
+    tiles = decode_tiles(painted)
+    if len(tiles) != len(XrayMeta.from_directory(full).nodes):
+        raise AssertionError(f"xray inpaint: {len(tiles)} tiles decode, the "
+                             f"full build has "
+                             f"{len(XrayMeta.from_directory(full).nodes)}")
+    shutil.rmtree(painted)
+    # A subtree built and inpainted with a transparent background keeps its
+    # holes until the inpaint fills them (a white one leaves none).
+    clear = ["--tile_background_color", "0,0,0,0"]
+    sub = os.path.join(root, "sub")
+    s = xray_build(octree_dir, sub, "colored",
+                   ["--root_node_id", XRAY_INPAINT_ROOT, *clear], wrappers,
+                   f"partial build {XRAY_INPAINT_ROOT}")
+    said4, sub_s, _ = run_xray_cli(
+        "inpaint_xray_quadtree",
+        [sub, "--output_directory", painted, "--root_node_id",
+         XRAY_INPAINT_ROOT, *clear], wrappers, "inpaint of a subtree")
+    before, after = decode_tiles(sub), decode_tiles(painted)
+    deepest = XrayMeta.from_directory(
+        sub, f"meta{XRAY_INPAINT_ROOT[1:]}.pb").deepest_level
+    holes = [sum(int((t[:, :, 3] < 128).sum()) for name, t in d.items()
+                 if len(name) == len("r.png") + deepest)
+             for d in (before, after)]
+    if sorted(before) != sorted(after) or not holes[1] < holes[0]:
+        raise AssertionError(f"xray inpaint of {XRAY_INPAINT_ROOT}: "
+                             f"{len(after)} tiles written of {len(before)}; "
+                             f"leaf pixels transparent before and after "
+                             f"{holes}")
+    log(f"xray upgrade: version 3 left as is ({up_s:.3f} s), version 2 "
+        f"rewritten to the full build's meta.pb ({up2_s:.3f} s); inpaint of "
+        f"the full build {paint_s:.3f} s, {len(tiles)} tiles decode "
+        f"(white background: no holes left); partial build "
+        f"{XRAY_INPAINT_ROOT} with a transparent background on the card "
+        f"{xray_line(s)}, inpainted in {sub_s:.3f} s: {len(after)} tiles "
+        f"decode, transparent leaf pixels {holes[0]} -> {holes[1]}; said "
+        f"{said4.strip().splitlines()[-1]!r}")
+    shutil.rmtree(root)
+    log(f"xray: phase 11 took {time.perf_counter() - t_phase:.3f} s")
+
+
 # --- phase 8: K7, the probes, and every kernel's bound -------------------
 
 
@@ -2220,6 +2580,8 @@ def main() -> int:
         streamed, buckets = phase_streaming(build, tmp, ply, octree_dir,
                                             incore_wall)
         phase_query(build, tmp)
+        phase_xray({**build, "K5": CC.cull_lod, "K7": K7.stream_probe}, tmp,
+                   octree_dir)
         log(f"launches on the in-core path (phase 5) {json.dumps(incore)}; "
             f"on the streaming path (phase 7c, 16M, {buckets} buckets) "
             f"{json.dumps(streamed)}; on the deep 16M build (phase 9) "

@@ -7,9 +7,10 @@ kernel under `csrc/`, built with nvcc on first use (`ops/_ext.py`), with a
 plain PyTorch version beside it that CPU tensors take.  This package
 imports torch and nothing of the JAX package: the host layers it needs
 (core, io, protos, math, octree.node_id, octree.octree, ops.codec, native,
-query.location, s2_cells, utils.progress, viewer.camera,
-viewer.software_raster) are its own copies, each citing the source lines
-it was copied from.
+query.location, s2_cells, utils.progress, utils.extension, viewer.camera,
+viewer.software_raster, and the x-ray quadtree algebra, meta, colormaps,
+merge and inpaint) are its own copies, each citing the source lines it
+was copied from.
 """
 
 __version__ = "0.1.0"

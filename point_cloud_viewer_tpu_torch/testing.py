@@ -1,7 +1,8 @@
 """Inputs and device readings shared by chip_smoke.py, kernel_ab.py and the
 tests: a node table of IEEE corner cases for the cull, points on the
 faces of a query OBB or frustum and S2 points on face boundaries for the
-query filter, and what torch.profiler sees of a call on the card.
+query filter, the x-ray splat reductions' inputs and outputs, and what
+torch.profiler sees of a call on the card.
 
 The profiler drops some or all of a session's device records now and then
 (it never adds any): records near either end of a session, in a process
@@ -188,3 +189,109 @@ def device_ops(fn, tries: int = 10) -> dict:
     return {"kernels": sorted(name for name, count in most.items()
                               for _ in range(count)),
             "memsets": memsets}
+
+
+def xray_splat_inputs(n: int, image_size: int, seed: int,
+                      step: float = 1.0 / 64.0) -> dict:
+    """Seeded numpy inputs of the four x-ray splat reductions
+    (xray/device_splat.py) over an image_size^2 tile: packed occupancy keys
+    pix * 2048 + z (z in [0, 1024]), pixel ids, u8 colors, heights in
+    [0, 46) m and intensities in [1, 100) on a `step` grid (1/64: the
+    exactness condition; None: full f64), and bins from -3 to 6, a
+    twentieth of them anywhere in +-2^40 (negative and wide bins), with the
+    binned values (the colors as f64, then the intensity).  A tenth of the
+    points share one pixel, so some sums run long."""
+    rng = np.random.default_rng(seed)
+    npx = image_size * image_size
+    pix = rng.integers(0, npx, n)
+    pix[: n // 10] = npx // 3
+    z = rng.integers(0, 1025, n)
+    height = rng.random(n) * 46.0
+    intensity = 1.0 + rng.random(n) * 99.0
+    if step is not None:
+        height = np.round(height / step) * step
+        intensity = np.round(intensity / step) * step
+    color = rng.integers(0, 256, (n, 3), dtype=np.uint8)
+    bins = rng.integers(-3, 7, n)
+    wide = rng.random(n) < 0.05
+    bins[wide] = rng.integers(-2**40, 2**40, int(wide.sum()))
+    vals = np.concatenate([color.astype(np.float64), intensity[:, None]], 1)
+    return {"keys": pix * 2048 + z, "pix": pix, "color": color,
+            "height": height, "intensity": intensity, "bins": bins,
+            "vals": vals}
+
+
+def xray_splat_outputs(inputs: dict, image_size: int, device) -> dict:
+    """{reduction: tuple of numpy outputs} of the port's four reductions on
+    `inputs` (xray_splat_inputs) on `device`; the moments for the heights
+    and for the intensities."""
+    from .xray import device_splat as DS
+
+    i = inputs
+    return {
+        "occupancy": (DS.xray_occupancy_device(i["keys"], image_size,
+                                               device),),
+        "color_sums": DS.color_sums_device(i["pix"], i["color"], image_size,
+                                           device),
+        "height_moments": DS.moment_sums_device(i["pix"], i["height"],
+                                                image_size, device),
+        "intensity_moments": DS.moment_sums_device(
+            i["pix"], i["intensity"], image_size, device),
+        "binned": DS.binned_run_reduce_device(i["pix"], i["bins"], i["vals"],
+                                              device),
+    }
+
+
+def same_bits(a, b) -> bool:
+    """Equal dtypes, shapes and bytes (NaN matching NaN)."""
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and (
+        a.tobytes() == b.tobytes())
+
+
+def xray_splat_differences(got: dict, want: dict) -> list:
+    """The (reduction, output index) pairs whose arrays differ in dtype,
+    shape or any bit."""
+    return [(name, k) for name in want
+            for k, (g, w) in enumerate(zip(got[name], want[name]))
+            if not same_bits(g, w)]
+
+
+def xray_points(n: int, seed: int, step=1.0 / 64.0):
+    """A PointsBatch of n points over a 10 x 10 x 5 m box (z on a `step`
+    grid unless step is None), u8 colors, intensities in [1, 100) on a 1/64
+    grid and a `ts` attribute from -10 to 60, as
+    tests/test_xray_strategies.py:232-250 draws them."""
+    from .core.points_batch import PointsBatch
+
+    rng = np.random.default_rng(seed)
+    p = rng.random((n, 3)) * np.array([10.0, 10.0, 5.0])
+    if step is not None:
+        p[:, 2] = np.round(p[:, 2] / step) * step
+    return PointsBatch(position=p, attributes={
+        "color": rng.integers(0, 256, (n, 3), dtype=np.uint8),
+        "intensity": (rng.integers(64, 6400, n) / 64.0).astype(np.float32),
+        "ts": rng.random(n) * 70.0 - 10.0})
+
+
+def xray_render(kind: str, kwargs: dict, batches, size: int, device):
+    """The (size, size, 4) u8 tile that make_strategy(kind, device=device,
+    **kwargs) renders from `batches` over xray_points' box."""
+    from .math.geometry import Aabb
+    from .xray.generation import make_strategy
+
+    box = Aabb(np.zeros(3), np.array([10.0, 10.0, 5.0]))
+    strategy = make_strategy(kind, device=device, **kwargs)
+    for batch in batches:
+        strategy.process(batch, box, size)
+    return strategy.render(size)
+
+
+def image_difference(a: np.ndarray, b: np.ndarray) -> tuple:
+    """(pixels whose channels differ, the largest difference in a channel)
+    of two u8 images of one shape."""
+    if a.shape != b.shape:
+        raise AssertionError(f"image shapes {a.shape} != {b.shape}")
+    d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+    return int((d.reshape(-1, d.shape[-1]).max(axis=1) > 0).sum()), int(
+        d.max(initial=0))

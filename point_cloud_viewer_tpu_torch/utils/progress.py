@@ -1,13 +1,55 @@
-"""Timing breadcrumbs, `timed` and `timed_phase`, and the CLI's box parser
-`parse_aabb` (copy of point_cloud_viewer_tpu/utils/progress.py:51-81 and
-104-115; `build_octree(progress=True)` passes `echo`)."""
+"""The stderr progress bar `ProgressBar`, timing breadcrumbs `timed` and
+`timed_phase`, and the CLIs' parsers `parse_key_val` and `parse_aabb` (copy
+of point_cloud_viewer_tpu/utils/progress.py:13-50, 51-81 and 96-115;
+`build_octree(progress=True)` passes `echo`, the x-ray build draws a
+`ProgressBar`)."""
 
 from __future__ import annotations
 
 import contextlib
 import sys
+import threading
 import time
 from typing import Iterator, Optional
+
+
+class ProgressBar:
+    """Minimal stderr progress bar, thread-safe, refreshing at most every
+    `refresh_s` seconds (the reference uses pbr with 2s refresh)."""
+
+    def __init__(self, total: int, message: str = "", refresh_s: float = 2.0,
+                 stream=None) -> None:
+        self.total = max(total, 1)
+        self.message = message
+        self.refresh_s = refresh_s
+        self.count = 0
+        self._lock = threading.Lock()
+        self._last = 0.0
+        self._start = time.time()
+        self._stream = stream or sys.stderr
+        self._render(force=True)
+
+    def inc(self, n: int = 1) -> None:
+        with self._lock:
+            self.count += n
+            self._render()
+
+    def _render(self, force: bool = False) -> None:
+        now = time.time()
+        if not force and now - self._last < self.refresh_s:
+            return
+        self._last = now
+        pct = 100.0 * self.count / self.total
+        self._stream.write(f"\r{self.message}: {self.count}/{self.total} ({pct:.0f}%)")
+        self._stream.flush()
+
+    def finish(self) -> None:
+        with self._lock:
+            self._render(force=True)
+            elapsed = time.time() - self._start
+            self._stream.write(f" done in {elapsed:.1f}s\n")
+            self._stream.flush()
+
 
 
 @contextlib.contextmanager
@@ -41,6 +83,14 @@ def timed_phase(phase_times: Optional[dict], key: str,
             phase_times[key] = (
                 phase_times.get(key, 0.0) + time.perf_counter() - t0
             )
+
+
+def parse_key_val(s: str):
+    """'KEY=value' -> (key, value) (reference: src/utils.rs:10-21)."""
+    if "=" not in s:
+        raise ValueError(f"invalid KEY=value: no '=' found in {s!r}")
+    key, value = s.split("=", 1)
+    return key, value
 
 
 def parse_aabb(s: str):

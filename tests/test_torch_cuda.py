@@ -820,3 +820,62 @@ def test_s2_ids_and_masks_on_card_match_cpu_and_host(cuda):
             np.testing.assert_array_equal(
                 DF.point_filter_mask(loc, pts, device=dev), want)
     assert 1e-9 <= _calibrated_delta(cuda) < 1e-6
+
+
+# --- the x-ray splat (torch ops on the card, no kernel of the port) ---------
+
+
+@pytest.mark.parametrize("n,size", [(0, 256), (1, 8), (1_000_003, 256),
+                                    (300_000, 1448)])
+def test_xray_reductions_on_card_match_cpu(cuda, n, size):
+    """The four reductions on the card against their CPU route, every output
+    bit for bit, with heights and intensities on a 1/64 step (the
+    exactness condition: f64 sums exact in any order); image_size 1448 is
+    the packed keyspace's largest, 1449 is refused on both."""
+    from point_cloud_viewer_tpu_torch import testing
+    from point_cloud_viewer_tpu_torch.xray import device_splat as DS
+
+    inputs = testing.xray_splat_inputs(n, size, seed=n + size)
+    got = testing.xray_splat_outputs(inputs, size, cuda)
+    want = testing.xray_splat_outputs(inputs, size, "cpu")
+    assert testing.xray_splat_differences(got, want) == []
+    for dev in (cuda, "cpu"):
+        with pytest.raises(ValueError, match="1448"):
+            DS.xray_occupancy_device(np.array([7]), 1449, dev)
+
+
+_XRAY_FAMILIES = [
+    ("xray", {}),
+    ("colored", {}),
+    ("colored_with_intensity", {"min_intensity": 0.1, "max_intensity": 100.0}),
+    ("colored_with_height_stddev", {"max_stddev": 2.0}),
+    ("colored", {"binning": ("ts", 10.0)}),
+    ("colored_with_intensity", {"min_intensity": 0.1, "max_intensity": 100.0,
+                                "binning": ("ts", 10.0)}),
+]
+
+
+@pytest.mark.parametrize("family", _XRAY_FAMILIES,
+                         ids=lambda f: f[0] + ("_binned" if f[1] else ""))
+@pytest.mark.parametrize("size", [64, 256])
+def test_xray_strategies_on_card_match_numpy_route(cuda, family, size):
+    """Each strategy family renders on the card the numpy route's tile byte
+    for byte under the exactness condition; with heights off any step the
+    height stddev differs by at most 1 per channel."""
+    from point_cloud_viewer_tpu_torch import testing
+
+    kind, kwargs = family
+    batches = [testing.xray_points(60_000, seed) for seed in (1, 2)]
+    card = testing.xray_render(kind, kwargs, batches, size, cuda)
+    want = testing.xray_render(kind, kwargs, batches, size, None)
+    assert testing.image_difference(card, want) == (0, 0)
+    assert card.tobytes() == want.tobytes()
+    if kind == "colored_with_height_stddev":
+        batches = [testing.xray_points(60_000, seed, step=None)
+                   for seed in (3, 4)]
+        pixels, most = testing.image_difference(
+            testing.xray_render(kind, kwargs, batches, size, cuda),
+            testing.xray_render(kind, kwargs, batches, size, None))
+        print(f"full-f64 heights at {size} px: {pixels} pixels differ, by "
+              f"at most {most}")
+        assert most <= 1

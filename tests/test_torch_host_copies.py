@@ -1,9 +1,12 @@
 """The port's own copies of the JAX package's host modules (core, protos,
-ops.codec, native, math, io, octree.node_id, octree.octree, viewer.camera)
-against the originals, on seeded numpy inputs: every copied native function
-bit-equal, meta.pb bytes and decoded fields equal, PLY batches equal, the
-octree's fields and visible sets equal on a tree built by both packages,
-and the camera's matrices equal.  One parametrised test per module."""
+ops.codec, native, math, io, octree.node_id, octree.octree, viewer.camera,
+the query path's and the x-ray path's) against the originals, on seeded
+numpy inputs: every copied native function bit-equal, meta.pb bytes and
+decoded fields equal, PLY batches equal, the octree's fields and visible
+sets equal on a tree built by both packages, and the camera's matrices
+equal; the x-ray copies marked unchanged are their originals' text, and
+their wire format, quadtree algebra, colormaps, tile selection, extension
+hooks and progress bar behave alike.  One parametrised test per module."""
 
 import numpy as np
 import pytest
@@ -744,3 +747,204 @@ def _query_case_s2_meta_and_parse_aabb(P, J, rng):
 def test_query_host_copies_match_jax(case):
     P, J = _packages()
     globals()[f"_query_case_{case}"](P, J, np.random.default_rng(RNG_SEED))
+
+
+# --- the x-ray path's host modules ---------------------------------------------
+
+# The copies that stand unchanged: each is its original's text plus one
+# docstring line naming the source.
+_XRAY_COPIES = ("protos/xray_meta.py", "utils/extension.py", "xray/quadtree.py",
+                "xray/colormap.py", "xray/meta.py", "xray/merge.py",
+                "xray/inpaint.py", "cli/merge_xray_quadtrees.py",
+                "cli/inpaint_xray_quadtree.py", "cli/upgrade_xray_quadtree.py")
+
+
+@pytest.mark.parametrize("path", _XRAY_COPIES)
+def test_xray_copies_are_their_originals(path):
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "point_cloud_viewer_tpu", path)) as f:
+        original = f.read()
+    with open(os.path.join(root, "point_cloud_viewer_tpu_torch", path)) as f:
+        copy = f.read()
+    n = original.count("\n")
+    note = f"\n\nCopy of point_cloud_viewer_tpu/{path}:1-{n}, unchanged.\n"
+    assert copy.count(note) == 1
+    # The note went in before the docstring's closing quotes, which stood
+    # on a line of their own or after its last word.
+    assert original in (copy.replace(note, "\n"), copy.replace(note, ""))
+
+
+def _xray_packages():
+    """(port, JAX) namespaces of the x-ray path's host modules."""
+    import importlib
+
+    names = ("protos.xray_meta", "utils.extension", "utils.progress",
+             "xray.quadtree", "xray.colormap", "xray.meta")
+    out = []
+    for pkg in ("point_cloud_viewer_tpu_torch", "point_cloud_viewer_tpu"):
+        mods = {n.split(".")[1]: importlib.import_module(f"{pkg}.{n}")
+                for n in names}
+        out.append(type("Mods", (), mods))
+    return out
+
+
+def _xray_meta_bytes(M, rng, version=3):
+    X = M.xray_meta
+    ids = sorted({(int(lv), int(rng.integers(0, 4 ** lv)))
+                  for lv in rng.integers(0, 9, 300)})
+    return X.XrayMetaProto(
+        version=version,
+        bounding_rect=X.RectProto(min=tuple(rng.normal(size=2) * 1e3),
+                                  edge_length=float(rng.random() * 500)),
+        deepest_level=8, tile_size=256,
+        nodes=[X.XrayNodeIdProto(lv, ix) for lv, ix in ids]).encode()
+
+
+def _xray_case_meta_wire(P, J, rng):
+    import struct
+
+    from point_cloud_viewer_tpu.protos import pbwire as JW
+
+    seed = int(rng.integers(1 << 30))
+    raw = _xray_meta_bytes(P, np.random.default_rng(seed))
+    assert raw == _xray_meta_bytes(J, np.random.default_rng(seed))
+    got, want = P.xray_meta.XrayMetaProto.decode(raw), \
+        J.xray_meta.XrayMetaProto.decode(raw)
+    assert got.encode() == want.encode() == raw
+    # A v2 rect: Vector2f min in field 1, f32 edge in field 2.
+    w = JW.FieldWriter()
+    v = JW.FieldWriter()
+    v.float32(1, 1.5)
+    v.float32(2, -2.25)
+    w.message(1, v.finish())
+    w.float32(2, 64.0)
+    rect = w.finish()
+    got, want = (M.xray_meta.RectProto.decode(rect) for M in (P, J))
+    assert (got.min, got.edge_length) == (want.min, want.edge_length) == (
+        (1.5, -2.25), 64.0)
+    for version in (2, 7):
+        raw = _xray_meta_bytes(J, np.random.default_rng(seed), version)
+        if version == 2:
+            assert (P.xray_meta.XrayMetaProto.decode(raw).encode()
+                    == J.xray_meta.XrayMetaProto.decode(raw).encode())
+            continue
+        with pytest.raises(ValueError) as e_port:
+            P.xray_meta.XrayMetaProto.decode(raw)
+        with pytest.raises(ValueError) as e_jax:
+            J.xray_meta.XrayMetaProto.decode(raw)
+        assert str(e_port.value) == str(e_jax.value)
+    assert struct.calcsize("<d") == 8
+
+
+def _xray_case_quadtree(P, J, rng):
+    PQ, JQ = P.quadtree, J.quadtree
+    rect = (float(rng.normal() * 100), float(rng.normal() * 100), 409.6)
+    for _ in range(300):
+        level = int(rng.integers(0, 14))
+        index = int(rng.integers(0, 4 ** level)) if level else 0
+        p, j = PQ.QuadNodeId(level, index), JQ.QuadNodeId(level, index)
+        assert str(p) == str(j)
+        assert PQ.QuadNodeId.from_str(str(j)) == p
+        assert p.to_spatial() == PQ.SpatialNodeId(*vars(j.to_spatial())
+                                                  .values())
+        for d in PQ.Direction:
+            pn, jn = p.neighbor(d), j.neighbor(JQ.Direction[d.name])
+            assert (pn is None) == (jn is None)
+            if pn is not None:
+                assert (pn.level, pn.index) == (jn.level, jn.index)
+            assert d.opposite().name == JQ.Direction[d.name].opposite().name
+        pr, jr = (n.find_bounding_rect(M.Rect(*rect)) for n, M in
+                  ((p, PQ), (j, JQ)))
+        assert (pr.min_x, pr.min_y, pr.edge_length, pr.max_x, pr.max_y,
+                pr.center()) == (jr.min_x, jr.min_y, jr.edge_length,
+                                 jr.max_x, jr.max_y, jr.center())
+        if level:
+            assert p.parent().index == j.parent().index
+            assert p.child_index_in_parent() == j.child_index_in_parent()
+    for root, level in (("r", 3), ("r21", 5), ("r3", 3)):
+        pids = PQ.nodes_at_level(PQ.QuadNodeId.from_str(root), level)
+        jids = JQ.nodes_at_level(JQ.QuadNodeId.from_str(root), level)
+        assert [str(n) for n in pids] == [str(n) for n in jids]
+        _same(PQ.node_rects(pids, PQ.Rect(*rect)),
+              JQ.node_rects(jids, JQ.Rect(*rect)))
+    with pytest.raises(ValueError):
+        PQ.QuadNodeId.from_str("x12")
+
+
+def _xray_case_colormap_and_meta(P, J, rng):
+    vals = np.concatenate([np.linspace(0.0, 1.0, 1001),
+                           rng.random(5000), [-0.1, 1.2]])
+    for f in ("jet", "monochrome"):
+        _same(getattr(P.colormap, f)(vals), getattr(J.colormap, f)(vals))
+    _same(P.colormap.monochrome(vals, base=(0.2, 0.4, 0.6, 1.0)),
+          J.colormap.monochrome(vals, base=(0.2, 0.4, 0.6, 1.0)))
+    raw = _xray_meta_bytes(J, rng)
+    pm = P.meta.XrayMeta(P.xray_meta.XrayMetaProto.decode(raw))
+    jm = J.meta.XrayMeta(J.xray_meta.XrayMetaProto.decode(raw))
+    assert pm.to_proto().encode() == jm.to_proto().encode()
+    assert str(pm.root_node()) == str(jm.root_node())
+    cam = np.array([[0.01, 0, 0, -0.3], [0, 0.012, 0, 0.1],
+                    [0, 0, 0.2, 0], [0, 0, 0, 1.0]])
+    entries = list(cam.T.reshape(-1))
+    for level in range(9):
+        assert sorted(str(n) for n in pm.iter_level(level)) == sorted(
+            str(n) for n in jm.iter_level(level))
+        got = pm.get_nodes_for_level(level, entries)
+        want = jm.get_nodes_for_level(level, entries)
+        assert sorted(vars(t).values() for t in got) == sorted(
+            vars(t).values() for t in want)
+    for m in (pm, jm):
+        with pytest.raises(ValueError):
+            m.get_nodes_for_level(2, [1.0] * 15)
+
+
+class _Extension:
+    """A plugin for the extension case: a flag and a transform."""
+
+    def add_arguments(self, parser):
+        parser.add_argument("--shift", type=float, default=0.0)
+
+    def query_from_global(self, args):
+        return ("shift", args.shift)
+
+
+def _xray_case_extension_and_progress(P, J, rng):
+    import argparse
+    import io
+    import re
+
+    spec = f"{__name__}:_Extension"
+    said = []
+    for M in (P, J):
+        ext = M.extension.load_extension(spec)
+        assert isinstance(ext, _Extension)
+        assert M.extension.load_extension(None) is None
+        parser = argparse.ArgumentParser()
+        M.extension.apply_hook(ext, "add_arguments", parser)
+        args = parser.parse_args(["--shift", "2.5"])
+        said.append((M.extension.apply_hook(ext, "query_from_global", args),
+                     M.extension.apply_hook(ext, "after_build", args,
+                                            default="none"),
+                     M.extension.apply_hook(None, "x", default=3)))
+        stream = io.StringIO()
+        bar = M.progress.ProgressBar(7, "Building level 5", refresh_s=0.0,
+                                     stream=stream)
+        for _ in range(7):
+            bar.inc()
+        bar.finish()
+        said.append(re.sub(r"\d+\.\ds", "X.Xs", stream.getvalue()))
+        said.append(M.progress.parse_key_val("intensity=0.5,2=x"))
+        with pytest.raises(ValueError) as e:
+            M.progress.parse_key_val("no-equals")
+        said.append(str(e.value))
+    assert said[:4] == said[4:]
+
+
+@pytest.mark.parametrize("case", ["meta_wire", "quadtree",
+                                  "colormap_and_meta",
+                                  "extension_and_progress"])
+def test_xray_host_copies_match_jax(case):
+    P, J = _xray_packages()
+    globals()[f"_xray_case_{case}"](P, J, np.random.default_rng(RNG_SEED))

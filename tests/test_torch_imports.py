@@ -1,6 +1,7 @@
 """The PyTorch port imports without jax (the GPU machine has none) and
-without the JAX package, builds and views with both refused, asks for CUDA
-only explicitly, and never counts a kernel launch on the CPU."""
+without the JAX package, builds, views, queries and runs the x-ray CLIs
+with both refused, asks for CUDA only explicitly, and never counts a kernel
+launch on the CPU."""
 
 import os
 import subprocess
@@ -71,6 +72,15 @@ _PORT_MODULES = [
     "point_cloud_viewer_tpu_torch.query.client",
     "point_cloud_viewer_tpu_torch.s2_cells.container",
     "point_cloud_viewer_tpu_torch.cli.query_points",
+    "point_cloud_viewer_tpu_torch.xray.device_splat",
+    "point_cloud_viewer_tpu_torch.xray.generation",
+    "point_cloud_viewer_tpu_torch.xray.build",
+    "point_cloud_viewer_tpu_torch.xray.merge",
+    "point_cloud_viewer_tpu_torch.xray.inpaint",
+    "point_cloud_viewer_tpu_torch.cli.build_xray_quadtree",
+    "point_cloud_viewer_tpu_torch.cli.merge_xray_quadtrees",
+    "point_cloud_viewer_tpu_torch.cli.inpaint_xray_quadtree",
+    "point_cloud_viewer_tpu_torch.cli.upgrade_xray_quadtree",
 ]
 
 
@@ -353,3 +363,78 @@ def test_query_stands_alone(tmp_path):
         print("query counts", counts, len(got[0]))
     """)
     assert "query counts" in out
+
+
+def test_xray_clis_stand_alone(tmp_path):
+    """With jax and the JAX package refused, the four x-ray CLIs on a tiny
+    octree built by the port: cli.build_xray_quadtree with --device cpu in
+    every strategy (and its numpy route), partial builds of the four
+    level-1 quadrants merged by cli.merge_xray_quadtrees into the full
+    build's node set, cli.inpaint_xray_quadtree and
+    cli.upgrade_xray_quadtree on the full build; every tile decodes.  The
+    lazy imports inside the x-ray modules run here, so one of the JAX
+    package left behind would show."""
+    out = _run_refused(f"""
+        import os
+
+        import numpy as np
+        from PIL import Image
+        from point_cloud_viewer_tpu_torch.cli.build_xray_quadtree import (
+            main as build)
+        from point_cloud_viewer_tpu_torch.cli.inpaint_xray_quadtree import (
+            main as inpaint)
+        from point_cloud_viewer_tpu_torch.cli.merge_xray_quadtrees import (
+            main as merge)
+        from point_cloud_viewer_tpu_torch.cli.upgrade_xray_quadtree import (
+            main as upgrade)
+        from point_cloud_viewer_tpu_torch.core.points_batch import PointsBatch
+        from point_cloud_viewer_tpu_torch.octree.builder import build_octree
+        from point_cloud_viewer_tpu_torch.xray.meta import XrayMeta
+
+        rng = np.random.default_rng(12)
+        n = 30_000
+        tmp = {str(tmp_path)!r}
+        cloud = os.path.join(tmp, "cloud")
+        build_octree(cloud, 0.001, PointsBatch(
+            position=rng.random((n, 3)) * [4.0, 4.0, 1.0], attributes={{
+                "color": rng.integers(0, 256, (n, 3), dtype=np.uint8),
+                "intensity": rng.random(n, dtype=np.float32)}}),
+            device="cpu")
+        common = [cloud, "--tile_size", "64", "--resolution", "0.05",
+                  "--num_threads", "2"]
+        strategies = {{
+            "xray": [], "colored": ["--binning", "intensity=0.25"],
+            "colored_with_intensity": ["--min_intensity", "-1",
+                                       "--max_intensity", "1"],
+            "colored_with_height_stddev": ["--max_stddev", "0.5"]}}
+        for kind, extra in strategies.items():
+            for route in (["--device", "cpu"],
+                          ["--no-use_device", "--no-device_filter"]):
+                d = os.path.join(tmp, kind + route[0])
+                assert build([*common, "--coloring_strategy", kind, *extra,
+                              *route, "--output_directory", d]) == 0
+        full = os.path.join(tmp, "xray--device")
+        parts = []
+        for q in range(4):
+            parts.append(os.path.join(tmp, f"part{{q}}"))
+            assert build([*common, "--device", "cpu", "--root_node_id",
+                          f"r{{q}}", "--output_directory", parts[-1]]) == 0
+        merged = os.path.join(tmp, "merged")
+        assert merge([*parts, "--output_directory", merged]) == 0
+        assert XrayMeta.from_directory(merged).nodes == (
+            XrayMeta.from_directory(full).nodes)
+        painted = os.path.join(tmp, "inpainted")
+        assert inpaint([full, "--output_directory", painted,
+                        "--num_threads", "2"]) == 0
+        assert upgrade([full]) == 0
+        tiles = 0
+        for d in (full, merged, painted):
+            for name in os.listdir(d):
+                if name.endswith(".png"):
+                    assert np.asarray(Image.open(os.path.join(d, name))
+                                      ).shape == (64, 64, 4)
+                    tiles += 1
+        assert_nothing_refused_loaded()
+        print("xray tiles", tiles)
+    """)
+    assert "xray tiles" in out
