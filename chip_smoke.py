@@ -67,14 +67,17 @@ Phases (any failure raises and the exit code is non-zero):
                 of K5 in each timed setup of 6a and of K3, held to their
                 queued back-to-back times (off by more than 20%: "not
                 measured"), and the kernels and memsets one K3 call and
-                one K5 call put on the card;
+                one K5 call put on the card (read in a child process,
+                `chip_smoke.py --device-ops`, whose profiler keeps them;
+                five profiles of a K3 call in this process are logged
+                beside it);
                 c. phase 5's PLY through cli.build_octree --use_device
                 --streaming, byte-compared with phase 5's in-core output, then
                 a 64M-point PLY built in core and streamed on the card and
                 byte-compared; per-bucket phase times, bytes up and down, the
                 bucket count, the streaming path's K1-K4 launches and the
                 share of the card's bucket time the host waited for;
-  9. deep + host (run after 7d, before 7c, which deletes phase 5's PLY)
+  9. deep + host (run after 7d, before 7c)
              -- a 16,000,000-point cloud in a 6.4e6 m root box at 1 mm
                 (total cap 33, sub-builds at depth 12): a Gaussian in one
                 level-21 cell (10M points: a fat cell derived on the card),
@@ -89,7 +92,7 @@ Phases (any failure raises and the exit code is non-zero):
                 output, with its CUDA-event time; then phase 5's PLY
                 through cli.build_octree --no-use_device, byte-compared
                 with phase 5's card build; phase times and walls of every
-                build;
+                build (the in-core card build is kept for 12e);
   10. query (run after 7c) -- a 16M-point cloud on and above the WGS84
                 surface (a 20 km x 20 km site, altitudes -100 to 500 m,
                 half uniform, half in 64 Gaussian clusters) through
@@ -124,13 +127,35 @@ Phases (any failure raises and the exit code is non-zero):
                 full build, and a level-3 subtree with a transparent
                 background whose holes it fills), every tile decoding;
                 walls, tiles and points splatted; no launch of K1-K7;
+  12. mesh (run after 11) -- the multi-device build on a mesh of 4
+                shards sharing the card (the card machine has one):
+                a. build_tree_device (the full device core from cells,
+                with t_norm) on the cells of phase 4's 16M and 64M codes,
+                CUDA-event medians of 3 and the Morton encode's share; at
+                16M order, final and leaf equal build_tree_device_codes on
+                the card and t_norm a numpy recomputation, at 1M the whole
+                result its CPU route, bit for bit; b. the exact sharded
+                sort: the dry run's skewed 64,000 points at capacity
+                factor 1.0 retry at least once, the 16M cells equal the
+                host's stable sort; c. phase 5's 16M batch built with the
+                mesh, byte-equal to phase 5's octree (1529 nodes), points
+                a shard summing to 16M, K6's and K4's stages launched once
+                a shard and nothing else, then cli.build_octree --mesh 1 on
+                phase 5's PLY, byte-equal too; d. entry.dryrun_multichip(4)
+                (stats step, skewed retry, 2,000,003 ECEF points mesh vs
+                one device byte for byte, geodesic queries); e. phase 9's
+                deep cloud on a 2-shard mesh, byte-equal to phase 9's
+                in-core card build, its one fat cell of at least
+                _DEEP_DEVICE_MIN_N dispatched once (one cell on shards
+                sharing one card cannot show the placement;
+                tests/test_torch_mesh_build.py checks it on cpu shards);
   8. probe + bounds -- K7 (copy, triad, add3) against its plain version
                 at 128,000,000 and ragged n, bit for bit; the streaming-
                 bandwidth probes (hbm_probes: add_1d, add_2d, copy, triad,
                 add3) and torch.add's time; then, for K1-K7, the least bytes
                 a launch moves, its launches per main-path call (16M
-                in-core build, streamed bucket, deep 16M build, viewer
-                frame), its bound
+                in-core build, streamed bucket, deep 16M build, 16M mesh
+                build on 4 shards, viewer frame), its bound
                 (bytes over the card's memory rate -- the larger of its
                 published peak and the measured probe rate -- or K5's f32
                 operations over the card's published f32 peak where
@@ -199,6 +224,10 @@ XRAY_BINNING = "intensity=0.125"     # phase 11b: colored, binned
 XRAY_HEIGHT_POINTS = 4_000_000       # phase 11c: points on a 1/64 m step
 XRAY_SPLAT_POINTS = 8_000_000        # phase 11d: the reductions' input
 XRAY_INPAINT_ROOT = "r000"           # phase 11f: a level-3 subtree
+MESH_SHARDS = 4                      # phase 12: shards sharing the card
+MESH_CORE_CHECK = 1_000_000          # phase 12a: whole result vs CPU route
+MESH_SKEW = 64_000                   # phase 12b: the dry run's skewed cloud
+DEEP_MESH_SHARDS = 2                 # phase 12e
 # f32 rate outside the tensor cores, NVIDIA H100 SXM data sheet (an FMA
 # counts two operations), at the 700 W power limit.
 FP32_PEAK_OPS = 67e12
@@ -855,8 +884,8 @@ def check_build_launches(where: str, launches: dict,
 def phase_e2e(wrappers: dict, tmp: str) -> tuple:
     """16M points through the CLI on the card, held byte for byte against
     the CLI with --device cpu; returns the main path's launch counts, the
-    card's octree directory (kept for phases 6 and 7c), the PLY (kept for
-    7c) and the card build's wall seconds."""
+    card's octree directory (kept for phases 6, 7c and 12), the PLY (kept
+    for 7c and 12), the card build's wall seconds and its phases."""
     ply = os.path.join(tmp, "cloud.ply")
     a_dir = os.path.join(tmp, "card")
     b_dir = os.path.join(tmp, "cpu")
@@ -891,7 +920,7 @@ def phase_e2e(wrappers: dict, tmp: str) -> tuple:
         f"{said.group(2)} nodes hold all {E2E_POINTS} points")
     check_build_launches("e2e", launches, 1)
     shutil.rmtree(b_dir)
-    return launches, a_dir, ply, wall
+    return launches, a_dir, ply, wall, phases
 
 # --- phase 6: the viewer's device cull ------------------------------------
 
@@ -1346,17 +1375,93 @@ def readings_text(r: dict) -> str:
             f"ms a call; one call {r['ms']:.4f} ms (CUDA events)")
 
 
-def phase_device_times(record: dict, cull_setups: dict) -> None:
-    """7d, after 7a-b (profiles taken there see the card): device_readings
-    of K5 in each timed setup of 6a and of K3 at SIZES[0], level 8, from
-    phase 3's timed state; and the kernels and memsets one call of each
-    puts on the card (testing.device_ops), which must be one memset and
-    one lookback_scan for K3, one cull_kernel for K5."""
+def device_ops_main() -> int:
+    """`chip_smoke.py --device-ops` (fresh_device_ops' child): prints as
+    JSON the kernels and memsets one K3 call and one K5 call put on the
+    card (testing.device_ops), on phase 3's K3 input (SIZES[0] codes,
+    level 8, the state the levels before leave) and phase 6a's partial
+    frame over its node table."""
+    sys.meta_path.insert(0, RefuseJaxPackage())
     import torch
 
     from point_cloud_viewer_tpu_torch.ops import cull_cuda as CC
     from point_cloud_viewer_tpu_torch.ops import level_cuda as LC
+    from point_cloud_viewer_tpu_torch.ops.leaf_levels_cuda import (
+        _bound_levels,
+    )
     from point_cloud_viewer_tpu_torch.testing import device_ops
+
+    dev = torch.device(DEVICE)
+    n = SIZES[0]
+    codes = torch.from_numpy(synthetic_codes(n, seed=n).view(np.int64))
+    b = _bound_levels(torch.sort(codes.to(dev)).values, DEPTH)
+    ss, leaf, found = k3_level_state(b, 8)
+    ops = {"K3": device_ops(
+        lambda: LC.leaf_update_pass(b, ss, leaf, found, 8, 100_000))}
+    _, table, _, setups = cull_inputs(dev)
+    ops["K5"] = device_ops(lambda: CC.cull_lod(*setups["partial"], *table))
+    print(json.dumps(ops), flush=True)
+    return 0
+
+
+def fresh_device_ops() -> dict:
+    """device_ops_main's readings, taken in a child process.  Late in this
+    process torch.profiler once dropped the memset record of all ten
+    profiles of a K3 call on an H100, while a fresh process kept it in 50
+    of 50 profiles, with 60 profiles of K6 between them: what one call puts
+    on the card is read where the profiler keeps its records."""
+    import subprocess
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, os.path.join(here, "chip_smoke.py"), "--device-ops"],
+        cwd=here, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"chip_smoke.py --device-ops exited "
+                             f"{proc.returncode}: {proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def inprocess_profiles(k3_call, tries: int = 5) -> list:
+    """What this process's profiler keeps of one K3 call, late in the
+    smoke, beside fresh_device_ops' reading: for each of `tries` sessions
+    of one call (testing._session), the device records kept of its kernel
+    and its memset, and the activity buffers kineto requested during it.
+    Logged only; the child's reading is the check (PERF.md §7)."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from point_cloud_viewer_tpu_torch import testing as T
+
+    k3_call()
+    torch.cuda.synchronize()
+    rows = []
+    for _ in range(tries):
+        events = [(ev.name, ev.device_type)
+                  for ev in T._session(k3_call, 1).events()]
+        cuda = [name.lower() for name, kind in events
+                if kind == DeviceType.CUDA]
+        rows.append({
+            "kernel": sum("lookback_scan" in name for name in cuda),
+            "memset": sum("memset" in name for name in cuda),
+            "buffer_requests": sum(name == "Activity Buffer Request"
+                                   for name, _ in events)})
+    log(f"K3 in this process (logged, not the check): {tries} profiles of "
+        f"one call kept {json.dumps(rows)}")
+    return rows
+
+
+def phase_device_times(record: dict, cull_setups: dict) -> None:
+    """7d, after 7a-b (profiles taken there see the card): device_readings
+    of K5 in each timed setup of 6a and of K3 at SIZES[0], level 8, from
+    phase 3's timed state; and the kernels and memsets one call of each
+    puts on the card (testing.device_ops, in a child process:
+    fresh_device_ops), which must be one memset and one lookback_scan for
+    K3, one cull_kernel for K5."""
+    import torch
+
+    from point_cloud_viewer_tpu_torch.ops import cull_cuda as CC
+    from point_cloud_viewer_tpu_torch.ops import level_cuda as LC
 
     device = {}
     for name, (per_frame, nodes) in cull_setups.items():
@@ -1365,9 +1470,6 @@ def phase_device_times(record: dict, cull_setups: dict) -> None:
         log(f"K5 {name}: {readings_text(r)}")
     record["K5"]["device"] = device
     record["K5"]["device_ms"] = device["partial"]
-    per_frame, nodes = cull_setups["partial"]
-    record["K5"]["device_ops"] = device_ops(
-        lambda: CC.cull_lod(*per_frame, *nodes))
 
     b, ss, leaf, found = record["K3"].pop("inputs")
     k3 = lambda l, f: LC.leaf_update_pass(b, ss, l, f, 8, 100_000)  # noqa: E731
@@ -1375,8 +1477,11 @@ def phase_device_times(record: dict, cull_setups: dict) -> None:
     record["K3"]["device_ms"] = r["device_ms"]
     log(f"K3 leaf_update_pass n={b.shape[0]}, level 8, each call from the "
         f"state before level 8: {readings_text(r)}")
-    lt, ft = leaf.clone(), found.clone()
-    record["K3"]["device_ops"] = device_ops(lambda: k3(lt, ft))
+    inprocess_profiles(lambda: k3(leaf, found))
+    del b, ss, leaf, found
+    torch.cuda.empty_cache()
+    for k, ops in fresh_device_ops().items():
+        record[k]["device_ops"] = ops
     want = {"K3": {"kernels": ["lookback_scan"], "memsets": 1},
             "K5": {"kernels": ["cull_kernel"], "memsets": 0}}
     for k, ops in want.items():
@@ -1385,8 +1490,6 @@ def phase_device_times(record: dict, cull_setups: dict) -> None:
             f"{got['kernels']} and {got['memsets']} memset(s) on the card")
         if got != ops:
             raise AssertionError(f"{k} is not {ops} a call: {got}")
-    del b, ss, leaf, found, lt, ft
-    torch.cuda.empty_cache()
 
 
 def ab_turn() -> list:
@@ -1595,7 +1698,8 @@ def phase_streaming(wrappers: dict, tmp: str, ply16: str, incore16: str,
                     incore16_wall: float) -> dict:
     """7c: phase 5's PLY streamed on the card against phase 5's in-core
     output, then BIG_POINTS built in core and streamed, byte for byte;
-    every intermediate is deleted once compared.  Returns the 16M
+    every intermediate is deleted once compared (phase 5's PLY is kept for
+    phase 12).  Returns the 16M
     streaming path's launch counts and its number of buckets derived on
     the card."""
     spill = os.path.join(tmp, "spill")
@@ -1605,7 +1709,6 @@ def phase_streaming(wrappers: dict, tmp: str, ply16: str, incore16: str,
     log(f"streaming 16M: == phase 5's in-core card build, {files} files "
         f"byte-equal; wall streamed {wall:.3f} s vs in core "
         f"{incore16_wall:.3f} s")
-    os.remove(ply16)
     shutil.rmtree(out)
 
     ply = os.path.join(tmp, "big.ply")
@@ -1686,7 +1789,7 @@ def phase_deep(wrappers: dict, tmp: str, ply16: str, incore16: str) -> dict:
     depth 12) on the card against the same call on CPU tensors, output by
     output; launches per build; then phase 5's PLY through cli.build_octree
     --no-use_device against phase 5's card build.  Returns the in-core
-    deep build's launch counts."""
+    deep build's launch counts and its octree (kept for phase 12e)."""
     import torch
 
     from point_cloud_viewer_tpu_torch.math.geometry import Aabb, Cube
@@ -1757,7 +1860,6 @@ def phase_deep(wrappers: dict, tmp: str, ply16: str, incore16: str) -> dict:
                         int(s_phases["deep_device_subbuilds"]))
     files = dirs_byte_equal(card, streamed)
     log(f"deep: streamed on the card == in core, {files} files byte-equal")
-    shutil.rmtree(card)
     shutil.rmtree(streamed)
 
     # The fat cell's sub-build, card against CPU tensors; these launches
@@ -1799,7 +1901,7 @@ def phase_deep(wrappers: dict, tmp: str, ply16: str, incore16: str) -> dict:
         f"phases (s) {json.dumps(phases)}; == phase 5's card build, {files} "
         f"files byte-equal; cli said: {said.strip().splitlines()[0]}")
     shutil.rmtree(host16)
-    return launches
+    return launches, card
 
 
 # --- phase 10: the query path ------------------------------------------------
@@ -2372,6 +2474,260 @@ def phase_xray(wrappers: dict, tmp: str, octree_dir: str) -> None:
     log(f"xray: phase 11 took {time.perf_counter() - t_phase:.3f} s")
 
 
+# --- phase 12: the multi-device build ----------------------------------------
+
+
+def morton_decode_device(codes):
+    """int64 Morton codes -> (N, 3) int32 cells (x msb) on their device:
+    the inverse of ops/morton._spread3_device, to make cells from phase
+    4's synthetic codes."""
+    import torch
+
+    def compact(v):
+        v = v & 0x1249249249249249
+        for shift, mask in ((2, 0x10C30C30C30C30C3), (4, 0x100F00F00F00F00F),
+                            (8, 0x1F0000FF0000FF), (16, 0x1F00000000FFFF),
+                            (32, 0x1FFFFF)):
+            v = (v | (v >> shift)) & mask
+        return v
+
+    return torch.stack([compact(codes >> 2), compact(codes >> 1),
+                        compact(codes)], dim=1).to(torch.int32)
+
+
+def t_norm_numpy(cells: np.ndarray, order: np.ndarray,
+                 final: np.ndarray) -> np.ndarray:
+    """build_tree_device's t_norm recomputed with numpy from the cells and
+    the final levels: (low s bits + 0.5) / 2^s in f32, s = depth - level."""
+    c = cells[order].astype(np.int64)
+    s = (DEPTH - final.astype(np.int64))[:, None]
+    return ((c & ((1 << s) - 1)).astype(np.float32) + np.float32(0.5)) / (
+        (1 << s).astype(np.float32))
+
+
+def phase_mesh_core() -> np.ndarray:
+    """12a: build_tree_device (the full device core from cells) on the
+    cells of phase 4's codes: at CORE_SIZES[0] order, final and leaf equal
+    build_tree_device_codes on the card and t_norm a numpy recomputation,
+    bit for bit; at MESH_CORE_CHECK points the whole result equals its CPU
+    route; CUDA-event medians of 3 and the Morton encode's share.  Returns
+    the CORE_SIZES[0] cells (host u32) for 12b."""
+    import torch
+
+    from point_cloud_viewer_tpu_torch.ops import morton
+    from point_cloud_viewer_tpu_torch.ops import tree_build as tb
+
+    kept = None
+    for n in CORE_SIZES:
+        on_card = morton.codes_to_tensor(synthetic_codes(n, seed=n + 1),
+                                         DEVICE)
+        cells = morton_decode_device(on_card)
+        if not torch.equal(morton.morton_encode_device(cells, DEPTH),
+                           on_card):
+            raise AssertionError(f"mesh core n={n}: decoded cells do not "
+                                 "encode back to the codes")
+        core_ms = cuda_ms(lambda: tb.build_tree_device(cells, DEPTH, DEPTH),
+                          reps=3)
+        encode_ms = cuda_ms(lambda: morton.morton_encode_device(cells, DEPTH),
+                            reps=3)
+        log(f"mesh core n={n}: build_tree_device {core_ms:.4f} ms = "
+            f"{n / core_ms / 1e3:.3f} Mpts/s (cells resident; CUDA events, "
+            f"median of 3); Morton encode {encode_ms:.4f} ms = "
+            f"{encode_ms / core_ms:.4f} of it")
+        if n == CORE_SIZES[0]:
+            out = tb.build_tree_device(cells, DEPTH, DEPTH)
+            order, final, leaf = tb.build_tree_device_codes(on_card, DEPTH,
+                                                            DEPTH)
+            host_cells = cells.cpu().numpy()
+            checks = {
+                "codes": torch.equal(out.codes, torch.sort(on_card).values),
+                "order": torch.equal(out.order, order.long()),
+                "final": torch.equal(out.final_level, final),
+                "leaf": torch.equal(out.leaf_level, leaf),
+                "t_norm": np.array_equal(
+                    out.t_norm.cpu().numpy().view(np.uint32),
+                    t_norm_numpy(host_cells, out.order.cpu().numpy(),
+                                 out.final_level.cpu().numpy()).view(
+                                     np.uint32)),
+            }
+            log(f"mesh core n={n}: against build_tree_device_codes on the "
+                f"card and numpy's t_norm {checks}")
+            if not all(checks.values()):
+                raise AssertionError(f"mesh core n={n}: {checks}")
+            kept = host_cells.view(np.uint32)
+            small = cells[:MESH_CORE_CHECK]
+            got = tb.build_tree_device(small, DEPTH, DEPTH)
+            t0 = time.perf_counter()
+            want = tb.build_tree_device(small.cpu(), DEPTH, DEPTH)
+            cpu_s = time.perf_counter() - t0
+            checks = {name: torch.equal(g.cpu(), w) for name, g, w in
+                      zip(tb.DeviceTreeResult._fields, got, want)}
+            log(f"mesh core n={MESH_CORE_CHECK}: card vs CPU route {checks} "
+                f"(CPU route {cpu_s:.3f} s)")
+            if not all(checks.values()):
+                raise AssertionError(f"mesh core: card differs from CPU: "
+                                     f"{checks}")
+            del out, order, final, leaf, got, want, small
+        del on_card, cells
+        torch.cuda.empty_cache()
+    return kept
+
+
+def phase_mesh_sort(mesh, cells16: np.ndarray) -> None:
+    """12b: the exact sharded sort on the mesh: the dry run's skewed cloud
+    at capacity factor 1.0 retries at least once; phase 4's 16M cells equal
+    the host's stable sort in codes and order."""
+    from point_cloud_viewer_tpu_torch.ops import morton
+    from point_cloud_viewer_tpu_torch.parallel.sharded_build import (
+        sharded_morton_sort,
+    )
+
+    rng = np.random.default_rng(11)
+    pos = rng.random((MESH_SKEW, 3)) * 100.0
+    pos[: int(MESH_SKEW * 0.4)] *= 0.01
+    pos = pos[rng.permutation(MESH_SKEW)]
+    cells = morton.quantize(pos, np.zeros(3), 100.0, DEPTH)
+    stats = {}
+    codes, order = sharded_morton_sort(cells, mesh, DEPTH,
+                                       capacity_factor=1.0, stats=stats)
+    host_codes = morton.morton_encode(cells)
+    host_order = np.argsort(host_codes, kind="stable")
+    if not (np.array_equal(codes, host_codes[host_order])
+            and np.array_equal(order, host_order)) or stats["attempts"] < 2:
+        raise AssertionError(f"mesh sort: skewed cloud {stats}")
+    t0 = time.perf_counter()
+    codes, order = sharded_morton_sort(cells16, mesh, DEPTH)
+    wall = time.perf_counter() - t0
+    host_codes, host_order = morton.argsort_codes(
+        morton.morton_encode(cells16))
+    equal = (np.array_equal(codes, host_codes)
+             and np.array_equal(order, host_order))
+    log(f"mesh sort: skewed {MESH_SKEW} points at capacity factor 1.0 "
+        f"{stats}; {len(cells16)} cells on "
+        f"{len(mesh)} shards {wall:.3f} s with upload and fetch, == the "
+        f"host's stable sort: {equal}")
+    if not equal:
+        raise AssertionError("mesh sort: 16M cells differ from the host sort")
+
+
+def check_mesh_launches(where: str, launches: dict, shards: int) -> None:
+    """The mesh build launched K6's and K4's stages once a shard and
+    nothing else (no extras scan: the shards' levels come back whole)."""
+    want = {k: 0 for k in launches}
+    want.update({"K4": shards, "K6": shards})
+    if launches != want:
+        raise AssertionError(f"{where}: launches {launches}, want {want}")
+
+
+def phase_mesh(wrappers: dict, tmp: str, ply16: str, incore16: str,
+               incore_phases: dict, deep_dir: str) -> dict:
+    """12: the multi-device build on MESH_SHARDS shards sharing the card
+    (12a the device core, 12b the sharded sort, 12c phase 5's 16M cloud
+    with a mesh and through cli.build_octree --mesh 1, 12d
+    entry.dryrun_multichip, 12e phase 9's deep cloud on DEEP_MESH_SHARDS
+    shards), each byte- or bit-equal to its single-device counterpart.
+    Returns the 12c mesh build's launch counts."""
+    import torch
+
+    from point_cloud_viewer_tpu_torch import entry
+    from point_cloud_viewer_tpu_torch.io.ply import PlyReader
+    from point_cloud_viewer_tpu_torch.math.geometry import Aabb
+    from point_cloud_viewer_tpu_torch.octree import builder as B
+    from point_cloud_viewer_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    card = torch.device(DEVICE)
+    mesh = make_mesh(devices=[card] * MESH_SHARDS)
+    cells16 = phase_mesh_core()
+    phase_mesh_sort(mesh, cells16)
+    del cells16
+
+    batch = PlyReader(ply16).read_all()
+    for w in wrappers.values():
+        w.launches = 0
+    phases = {}
+    out = os.path.join(tmp, "mesh16")
+    t0 = time.perf_counter()
+    result = B.build_octree(out, 0.001, batch, mesh=mesh, phase_times=phases)
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    files = dirs_byte_equal(incore16, out)
+    log(f"mesh build ({MESH_SHARDS} shards on {card}): wall {wall:.3f} s; "
+        f"phases (s) {json.dumps(phases)} beside phase 5's "
+        f"{json.dumps(incore_phases)}; points a shard {result.shard_points};"
+        f" {len(result.nodes)} nodes; == phase 5's in-core build, {files} "
+        f"files byte-equal; launches {json.dumps(launches)}")
+    if sum(result.shard_points) != len(batch):
+        raise AssertionError(f"mesh build: points a shard "
+                             f"{result.shard_points}")
+    check_mesh_launches("mesh build", launches, MESH_SHARDS)
+    shutil.rmtree(out)
+    del batch
+    for w in wrappers.values():
+        w.launches = 0
+    cli_phases = {}
+    t0 = time.perf_counter()
+    said = run_cli([ply16, "--output_directory", out, "--mesh", "1",
+                    "--device", DEVICE], cli_phases)
+    cli_launches = {k: w.launches for k, w in wrappers.items()}
+    files = dirs_byte_equal(incore16, out)
+    log(f"mesh cli --mesh 1: wall {time.perf_counter() - t0:.3f} s; phases "
+        f"(s) {json.dumps(cli_phases)}; == phase 5's build, {files} files "
+        f"byte-equal; launches {json.dumps(cli_launches)}; cli said: "
+        f"{said.strip().splitlines()[0]}")
+    check_mesh_launches("mesh cli", cli_launches, 1)
+    shutil.rmtree(out)
+    os.remove(ply16)
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        summary = entry.dryrun_multichip(MESH_SHARDS, device=DEVICE)
+    log(f"mesh dry run: {time.perf_counter() - t0:.3f} s; "
+        + buf.getvalue().strip())
+    log(f"mesh dry run numbers: {json.dumps(summary)}")
+
+    batch, _ = deep_cloud(seed=9)
+    box = Aabb(np.zeros(3), np.full(3, PLANET))
+    real = B._dispatch_deep_device
+    placed = []
+
+    def recording(batch_, run_order, *args, device=None, **kwargs):
+        placed.append((len(run_order), device))
+        return real(batch_, run_order, *args, device=device, **kwargs)
+
+    deep_mesh = make_mesh(devices=[card] * DEEP_MESH_SHARDS)
+    for w in wrappers.values():
+        w.launches = 0
+    deep_phases = {}
+    out = os.path.join(tmp, "deep_mesh")
+    B._dispatch_deep_device = recording
+    try:
+        t0 = time.perf_counter()
+        B.build_octree(out, DEEP_RESOLUTION, batch, bounding_box=box,
+                       mesh=deep_mesh, phase_times=deep_phases)
+        wall = time.perf_counter() - t0
+    finally:
+        B._dispatch_deep_device = real
+    deep_launches = {k: w.launches for k, w in wrappers.items()}
+    files = dirs_byte_equal(deep_dir, out)
+    fat = sorted((n for n, _ in placed), reverse=True)
+    log(f"mesh deep ({DEEP_MESH_SHARDS} shards): wall {wall:.3f} s; phases "
+        f"(s) {json.dumps(deep_phases)}; sub-builds placed "
+        f"{[(n, str(d)) for n, d in placed]} (one dispatch checked, not "
+        f"the placement); == phase 9's in-core card build, {files} files "
+        f"byte-equal; launches "
+        f"{json.dumps(deep_launches)}")
+    if (fat != [DEEP_POINTS[0]] or [d for _, d in placed] != [card]
+            or deep_phases["deep_device_subbuilds"] != 1):
+        raise AssertionError(f"mesh deep: placed {placed}")
+    check_deep_launches("mesh deep", deep_launches, 1)
+    shutil.rmtree(out)
+    shutil.rmtree(deep_dir)
+    log(f"mesh: phase 12 took {time.perf_counter() - t_phase:.3f} s")
+    return launches
+
+
 # --- phase 8: K7, the probes, and every kernel's bound -------------------
 
 
@@ -2483,6 +2839,8 @@ def bounds(record: dict, probes: dict, per_call: dict) -> dict:
 
 
 def main() -> int:
+    if sys.argv[1:] == ["--device-ops"]:
+        return device_ops_main()
     finder = RefuseJaxPackage()
     sys.meta_path.insert(0, finder)
     import torch
@@ -2567,7 +2925,8 @@ def main() -> int:
     build["K4 pass"] = LC.promote_pass
     tmp = tempfile.mkdtemp(prefix="pcv_chip_smoke_")
     try:
-        launches, octree_dir, ply, incore_wall = phase_e2e(build, tmp)
+        launches, octree_dir, ply, incore_wall, incore_phases = phase_e2e(
+            build, tmp)
         incore = dict(launches)
         table, cull_setups = phase_cull_kernel(record)
         phase_cull_session(octree_dir, table)
@@ -2576,17 +2935,20 @@ def main() -> int:
         phase_promote(record)
         phase_device_times(record, cull_setups)
         del cull_setups
-        deep = phase_deep(build, tmp, ply, octree_dir)
+        deep, deep_dir = phase_deep(build, tmp, ply, octree_dir)
         streamed, buckets = phase_streaming(build, tmp, ply, octree_dir,
                                             incore_wall)
         phase_query(build, tmp)
         phase_xray({**build, "K5": CC.cull_lod, "K7": K7.stream_probe}, tmp,
                    octree_dir)
+        mesh = phase_mesh(build, tmp, ply, octree_dir, incore_phases,
+                          deep_dir)
         log(f"launches on the in-core path (phase 5) {json.dumps(incore)}; "
             f"on the streaming path (phase 7c, 16M, {buckets} buckets) "
             f"{json.dumps(streamed)}; on the deep 16M build (phase 9) "
-            f"{json.dumps(deep)}; K5 in the viewer (phase 6c, "
-            f"{VIEW_FRAMES} frames) {launches['K5']}")
+            f"{json.dumps(deep)}; on the 16M mesh build (phase 12c, "
+            f"{MESH_SHARDS} shards) {json.dumps(mesh)}; K5 in the viewer "
+            f"(phase 6c, {VIEW_FRAMES} frames) {launches['K5']}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches["K7"], probes = phase_probe(record)
@@ -2607,6 +2969,7 @@ def main() -> int:
     per_call = {k: {"in-core 16M build": incore.get(k, 0),
                     "streamed bucket": streamed.get(k, 0) / buckets,
                     "deep 16M build": deep.get(k, 0),
+                    f"mesh 16M build ({MESH_SHARDS} shards)": mesh.get(k, 0),
                     "viewer frame": (launches["K5"] / VIEW_FRAMES
                                      if k == "K5" else 0)}
                 for k in kernels}

@@ -4,12 +4,14 @@ reference: src/bin/build_octree.rs).
 
 Usage: python -m point_cloud_viewer_tpu_torch.cli.build_octree INPUT.ply \
            --output_directory DIR [--device cuda] [--resolution 0.001] \
-           [--no-use_device] \
+           [--no-use_device] [--mesh N] \
            [--streaming [--bucket_levels 2] [--spill_directory SPILL]]
 
 The tree derivation runs on --device (--use_device, the default) or on the
-host (--no-use_device), in core or out of core (--streaming); --mesh exits
-with "not yet ported".
+host (--no-use_device), in core or out of core (--streaming).  --mesh N
+shards it over the first N devices of --device's type
+(parallel/mesh.make_mesh: N cards, truncated to those visible, or N CPU
+shards with --device cpu); it does not combine with --streaming.
 """
 
 from __future__ import annotations
@@ -51,8 +53,15 @@ def main(argv=None, phase_times: Optional[dict] = None) -> int:
         help="PyTorch device of the derivation: cuda (default) or cpu "
         "(unused with --no-use_device).",
     )
-    parser.add_argument("--mesh", type=int, default=0, metavar="N",
-                        help="Multi-device build (not yet ported).")
+    parser.add_argument(
+        "--mesh",
+        type=int,
+        default=0,
+        metavar="N",
+        help="Shard the derivation over the first N devices of --device's "
+        "type (multi-device build; output is byte-identical to one "
+        "device's). --use_device is then not read.",
+    )
     parser.add_argument(
         "--streaming",
         action="store_true",
@@ -80,8 +89,6 @@ def main(argv=None, phase_times: Optional[dict] = None) -> int:
         )
     if args.spill_directory and not args.streaming:
         parser.error("--spill_directory requires --streaming")
-    if args.mesh:
-        parser.error("--mesh: not yet ported, see ROADMAP")
     if args.num_threads is not None:
         if args.num_threads <= 0:
             parser.error("--num_threads must be positive")
@@ -108,12 +115,18 @@ def main(argv=None, phase_times: Optional[dict] = None) -> int:
     else:
         from ..octree.builder import build_octree_from_file
 
+        mesh = None
+        if args.mesh:
+            from ..parallel.mesh import make_mesh
+
+            mesh = make_mesh(args.mesh, device=args.device)
         result = build_octree_from_file(
             args.output_directory,
             args.resolution,
             args.input,
             attributes=args.attributes,
             use_device=args.use_device,
+            mesh=mesh,
             phase_times=times,
             device=args.device,
         )

@@ -24,9 +24,12 @@ native, utils.progress) are the port's own copies of the JAX package's
 modules.  Their behaviour is unchanged, so the bytes on disk are the JAX
 package's, byte for byte.
 
-The out-of-core build (octree/streaming.py) shares these helpers.
+The multi-device build (`mesh`, builder.py:310-413) shards the whole
+derivation over a mesh of PyTorch devices (parallel/sharded_build.py) and
+finishes the shallow top on the host; with a mesh, deep builds place
+their fat-cell sub-builds on the mesh's devices in turn.
 
-Not ported yet (see ROADMAP.md): multi-device (`mesh`) builds.
+The out-of-core build (octree/streaming.py) shares these helpers.
 """
 
 from __future__ import annotations
@@ -80,6 +83,8 @@ class BuildResult:
     bounding_box: Aabb
     nodes: List[Tuple[NodeId, int]]  # (id, num_points) of every recorded node
     depth_cap: int
+    # Mesh builds only: points owned by each shard after the all-to-all.
+    shard_points: Optional[List[int]] = None
 
     @property
     def num_points(self) -> int:
@@ -143,8 +148,12 @@ def build_octree(
     PyTorch versions); False is the host build (native tree_levels, or the
     numpy pair without the native library), which ignores `device`.
     `phase_times`: accumulates wall seconds per phase; deep builds add
-    `deep_device_subbuilds` (fat cells derived on `device`).
-    `mesh` (multi-device builds) is not ported yet and raises.
+    `deep_device_subbuilds` (fat cells derived on a device).
+    `mesh`: a tuple of devices (parallel/mesh.make_mesh) -- run the whole
+    derivation SHARDED over them with an all-to-all Morton-prefix exchange
+    (the multi-device build); `use_device` and `device` are then not read,
+    as the JAX package ignores `use_device` there.  On-disk output is
+    byte-identical to the single-device build.
 
     Deep builds (the resolution demands levels past 21, e.g. a
     planet-extent cloud at mm resolution): level-21 cells still over
@@ -152,15 +161,16 @@ def build_octree(
     format's level 40 (_split_fat_leaves).  With `use_device` the top sort
     and each fat cell of at least _DEEP_DEVICE_MIN_N points run on
     `device`; smaller fat cells take native tree_levels, as in the JAX
-    package.  On-disk output is byte-identical to the JAX package's build."""
+    package.  With a `mesh` the top sort runs on its first device and the
+    large fat cells go to its devices in turn (builder.py:127-137).  On-disk
+    output is byte-identical to the JAX package's build."""
     from ..device import resolve_device
     from ..ops.tree_build import fetch_grouped, tree_codes_grouped_on_device
 
     if mesh is not None:
-        raise NotImplementedError(
-            "multi-device (mesh) build not yet ported, see ROADMAP"
-        )
-    dev = resolve_device(device) if use_device else None
+        dev = mesh[0]
+    else:
+        dev = resolve_device(device) if use_device else None
 
     def phase(label):
         return timed_phase(
@@ -198,7 +208,15 @@ def build_octree(
     # over MAX_POINTS_PER_NODE are split by re-rooted sub-builds.
     deep = total_cap > depth_cap
 
-    if use_device and not deep:
+    if mesh is not None and depth_cap >= 2 and not deep:
+        # builder.py:182-188: a tree of at most a root and one level has
+        # no work to distribute; it takes the sort route below.
+        return _build_octree_mesh(
+            output_directory, resolution, batch, bounding_box, root_cube,
+            depth_cap, mesh, phase,
+        )
+
+    if dev is not None and mesh is None and not deep:
         # --- 1. Morton encode + the device derivation -------------------
         with phase("quantize+morton"):
             codes_unsorted, _ = morton.quantize_and_encode(
@@ -230,7 +248,7 @@ def build_octree(
                 batch.position, root_cube.min, root_cube.edge_length, depth_cap
             )
         with phase("sort"):
-            if use_device:
+            if dev is not None:
                 # Deep builds reach here with use_device set: the top sort
                 # runs on the device, and each large fat cell's subtree
                 # derivation too, inside _split_fat_leaves.
@@ -250,7 +268,7 @@ def build_octree(
                 codes, order, deep_nodes = _split_fat_leaves(
                     output_directory, codes, order, batch, root_cube,
                     resolution, depth_cap, total_cap, device=dev,
-                    phase_times=phase_times,
+                    mesh=mesh, phase_times=phase_times,
                 )
             with phase("discover+subsample"):
                 final_nodes = _subsample_bottom_up(
@@ -283,8 +301,116 @@ def build_octree(
     )
 
 
+# --- the multi-device build (copied from point_cloud_viewer_tpu/octree/
+# builder.py:310-413) -------------------------------------------------------
+
+
+def _build_octree_mesh(
+    output_directory: str,
+    resolution: float,
+    batch: PointsBatch,
+    bounding_box: Aabb,
+    root_cube: Cube,
+    depth_cap: int,
+    mesh,
+    phase,
+) -> BuildResult:
+    """The multi-device build: the whole derivation (sort, leaf assignment,
+    LOD promotion) runs sharded over the mesh; the host never walks all N
+    codes through a serial tree pass.
+
+    The decomposition is the out-of-core bucket builder's, so the output
+    is byte-identical to the single-device build:
+    - shard boundaries are level-B Morton prefixes, balanced by exact cell
+      counts, so every shard owns whole level-B subtrees;
+    - per shard on its device: all-to-all exchange, sort, leaf assignment
+      and LOD promotion stopped at level B (parallel/sharded_build.py);
+    - per shard on the host: group levels > B, gather, fixpoint-encode,
+      write node files;
+    - the shallow top (levels <= B) is finished from the per-shard
+      residuals by the streaming builder's top pass (at most ~N/8 points).
+
+    Reference analogue: generation.rs:152-193 parallelizes the whole build
+    over a rayon scope; here the mesh is the scope."""
+    from ..parallel.sharded_build import sharded_tree_levels
+    from .streaming import _finish_top, top_structure
+
+    n_shards = len(mesh)
+    # Enough level-B cells to balance the mesh (>= 8 cells a shard), at
+    # least the out-of-core default B = 2, capped by the tree depth.
+    b_levels = 2
+    while 8**b_levels < 8 * n_shards:
+        b_levels += 1
+    b_levels = min(b_levels, depth_cap - 1)
+
+    with phase("quantize+morton"):
+        codes_unsorted, _ = morton.quantize_and_encode(
+            batch.position, root_cube.min, root_cube.edge_length, depth_cap
+        )
+    with phase("sharded sort+derive"):
+        shards = sharded_tree_levels(
+            codes_unsorted, mesh, depth_cap, b_levels, depth_cap,
+            MAX_POINTS_PER_NODE,
+        )
+
+    num_buckets = 8**b_levels
+    shift = np.uint64(3 * (depth_cap - b_levels))
+    cell_counts = np.bincount(
+        (codes_unsorted >> shift).astype(np.int64), minlength=num_buckets
+    )
+    top_leaf_of_bucket, split_b = top_structure(
+        cell_counts, b_levels, root_cube, resolution, depth_cap
+    )
+    split_lut = np.zeros(num_buckets, dtype=bool)
+    if split_b:
+        split_lut[list(split_b)] = True
+
+    recorded: List[Tuple[NodeId, int]] = []
+    top_inputs: List[Tuple[int, PointsBatch]] = []
+    with phase("group+encode+write"):
+        for order_s, final_s, leaf_s in shards:
+            if len(order_s) == 0:
+                continue
+            codes_s = codes_unsorted[order_s]
+            pfx = (codes_s >> shift).astype(np.int64)
+            # Cells whose level-B node does not split (under a shallow leaf,
+            # or small) go to the top pass whole: the device derived them
+            # as if the level-B root split, which does not hold for them.
+            in_split = split_lut[pfx]
+            final_s = np.where(in_split, final_s, b_levels).astype(np.uint8)
+            leaf_s = np.where(in_split, leaf_s, b_levels).astype(np.uint8)
+            grouped, residual_idx = _group_subtree_levels(
+                codes_s, final_s, leaf_s, depth_cap, b_levels
+            )
+            recorded.extend(
+                _write_levels(
+                    output_directory, grouped, batch, order_s, root_cube,
+                    resolution,
+                )
+            )
+            r_leaf = top_leaf_of_bucket[pfx[residual_idx]]
+            r_lvl = np.where(r_leaf >= 0, r_leaf, b_levels)
+            for lvl in np.unique(r_lvl):
+                sel = residual_idx[r_lvl == lvl]
+                top_inputs.append((int(lvl), batch.take(order_s[sel])))
+    with phase("top"):
+        recorded.extend(
+            _finish_top(
+                output_directory, top_inputs, root_cube, resolution, depth_cap
+            )
+        )
+
+    meta = _meta_proto(resolution, bounding_box, recorded)
+    with open(os.path.join(output_directory, META_FILENAME), "wb") as f:
+        f.write(meta.encode())
+    return BuildResult(
+        output_directory, root_cube, resolution, bounding_box, recorded,
+        depth_cap, shard_points=[len(s[0]) for s in shards],
+    )
+
+
 # --- deep builds (copied from point_cloud_viewer_tpu/octree/builder.py:417-
-# 692, without the mesh placement) ------------------------------------------
+# 692) ------------------------------------------------------------------------
 
 
 # Device deep sub-builds only for cells at least this large (builder.py:
@@ -303,6 +429,7 @@ def _split_fat_leaves(
     depth_cap: int,
     total_cap: int,
     device=None,
+    mesh=None,
     phase_times: Optional[dict] = None,
 ) -> Tuple[np.ndarray, np.ndarray, List[Tuple[NodeId, int]]]:
     """Deep-tree recursion: level-`depth_cap` cells holding more than
@@ -314,26 +441,58 @@ def _split_fat_leaves(
     Writes all nodes DEEPER than depth_cap and returns reduced
     (codes, order) where each fat run is replaced by its sub-build residual
     (always <= MAX_POINTS_PER_NODE points), so the standard top derivation
-    sees the cell as an ordinary leaf.  `device` (None: the host build)
-    takes the fat cells of at least _DEEP_DEVICE_MIN_N points."""
+    sees the cell as an ordinary leaf.
+
+    The fat cells of at least _DEEP_DEVICE_MIN_N points are derived on
+    `mesh`'s devices round-robin, or on `device` alone without a mesh (None
+    for both: the host build).  They are dispatched ahead through a sliding
+    window of at most one in-flight sub-build a device (builder.py:458-
+    497), so on a mesh they overlap each other and the host's per-cell
+    group/encode/write loop while the host buffers stay bounded; on one
+    device the window dispatches cell i+1 only after cell i is fetched.
+    Each sub-build is self-contained, so only its placement changes and the
+    bytes do not."""
     uniq, counts = _sorted_unique_counts(codes)
     fat = counts > MAX_POINTS_PER_NODE
     if not fat.any():
         return codes, order, []
     run_offsets = np.concatenate([[0], np.cumsum(counts)])
+    fat_idx = np.flatnonzero(fat)
+    devs = (list(mesh) if mesh is not None
+            else [device] if device is not None else [])
+    eligible = [
+        int(i) for i in fat_idx
+        if int(run_offsets[i + 1]) - int(run_offsets[i]) >= _DEEP_DEVICE_MIN_N
+    ] if devs else []
+    pending = {}
+    next_slot = 0
+
+    def refill():
+        nonlocal next_slot
+        while next_slot < len(eligible) and len(pending) < len(devs):
+            i = eligible[next_slot]
+            s, e = int(run_offsets[i]), int(run_offsets[i + 1])
+            pending[i] = _dispatch_deep_device(
+                batch, order[s:e], int(uniq[i]), root_cube, depth_cap,
+                total_cap, device=devs[next_slot % len(devs)],
+            )
+            next_slot += 1
+
+    refill()
     recorded: List[Tuple[NodeId, int]] = []
     keep_codes: List[np.ndarray] = []
     keep_order: List[np.ndarray] = []
     prev_end = 0
-    for i in np.flatnonzero(fat):
+    for i in fat_idx:
         s, e = int(run_offsets[i]), int(run_offsets[i + 1])
         keep_codes.append(codes[prev_end:s])
         keep_order.append(order[prev_end:s])
         residual_order, nodes = _build_deep_subtree(
             directory, batch, order[s:e], int(uniq[i]), root_cube,
-            resolution, depth_cap, total_cap, device=device,
-            phase_times=phase_times,
+            resolution, depth_cap, total_cap, phase_times=phase_times,
+            precomputed=pending.pop(int(i), None),
         )
+        refill()
         recorded.extend(nodes)
         keep_codes.append(np.full(len(residual_order), uniq[i], dtype=np.uint64))
         keep_order.append(residual_order)
@@ -378,8 +537,8 @@ def _build_deep_subtree(
     resolution: float,
     depth_cap: int,
     total_cap: int,
-    device=None,
     phase_times: Optional[dict] = None,
+    precomputed=None,
 ) -> Tuple[np.ndarray, List[Tuple[NodeId, int]]]:
     """Build the subtree under one fat level-`depth_cap` cell: a standard
     sort-based build re-rooted at the cell's cube (sub-depth
@@ -389,10 +548,11 @@ def _build_deep_subtree(
     original order).  Returns (residual order — the cell's post-subtree
     content — and the recorded deep nodes).
 
-    A cell of at least _DEEP_DEVICE_MIN_N points with a `device` is derived
-    there (the grouped exchange, or the classic arrays on extras overflow);
-    a smaller one by native tree_levels, or the numpy pair without the
-    native library.  All routes write the same bytes."""
+    `precomputed` is the derivation _dispatch_deep_device launched on a
+    device (the grouped exchange, or the classic arrays on extras
+    overflow); without it the cell is derived by native tree_levels, or the
+    numpy pair without the native library.  All routes write the same
+    bytes."""
     from ..ops.tree_build import fetch_grouped
 
     node_id = NodeId.from_level_index(depth_cap, cell_path)
@@ -401,11 +561,8 @@ def _build_deep_subtree(
     if not 1 <= d2 <= morton.MAX_DEPTH:
         raise ValueError(f"sub-build depth {d2} outside [1, {morton.MAX_DEPTH}]")
 
-    if device is not None and len(run_order) >= _DEEP_DEVICE_MIN_N:
-        sub_codes, out = _dispatch_deep_device(
-            batch, run_order, cell_path, root_cube, depth_cap, total_cap,
-            device,
-        )
+    if precomputed is not None:
+        sub_codes, out = precomputed
         got = fetch_grouped(out)
         _add(phase_times, "deep_device_subbuilds", 1)
         if got.overflow:

@@ -210,6 +210,16 @@ def on_cuda(name: str, *tensors) -> bool:
                      f"on the CPU, got {[str(t.device) for t in tensors]}")
 
 
+def device_guard(t):
+    """The context every C entry is called in: t's card is the current
+    device, so a kernel for a tensor on cuda:k launches in cuda:k's
+    context whatever device the caller made current (a mesh puts its
+    shards on several cards from one thread)."""
+    import torch
+
+    return torch.cuda.device(t.device)
+
+
 def stream_ptr(t) -> int:
     """The cudaStream_t of PyTorch's current stream on t's device."""
     import torch

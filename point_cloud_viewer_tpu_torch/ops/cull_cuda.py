@@ -153,7 +153,7 @@ def cull_lod(matrix: torch.Tensor, axes: torch.Tensor, qmin: torch.Tensor,
         raise ValueError(f"cull_lod: {a_cap} axes > "
                          f"{lib.pcv_cull_max_axes()}")
     args = [t.contiguous() for t in args]
-    with torch.cuda.device(mins.device):
+    with _ext.device_guard(mins):
         err = lib.pcv_cull(
             *(t.data_ptr() for t in args[:4]), a_cap, frames,
             *(t.data_ptr() for t in args[4:]), k, sizes.data_ptr(),

@@ -78,7 +78,7 @@ def stream_probe(mode: str, x: torch.Tensor, s: torch.Tensor,
     if n == 0:
         return out
     lib = _ext.lib()
-    with torch.cuda.device(x.device):
+    with _ext.device_guard(x):
         err = lib.pcv_stream_probe(
             MODES[mode], x.data_ptr(),
             y.data_ptr() if y is not None else None,

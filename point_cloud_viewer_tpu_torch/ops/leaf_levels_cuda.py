@@ -112,7 +112,7 @@ def _launch(name: str, sorted_codes: torch.Tensor, leaf_dtype, depth: int,
     leaf = torch.empty(n, dtype=leaf_dtype, device=dev)
     levels = max_split_level - root_level
     lib = _ext.lib()
-    with torch.cuda.device(dev):
+    with _ext.device_guard(sorted_codes):
         tiles = -(-n // lib.pcv_leaf_tile_rows())
         scratch = torch.empty(2 * levels * tiles, dtype=torch.int32,
                               device=dev)

@@ -128,7 +128,7 @@ def seg_start_pass(b: torch.Tensor, level: int) -> torch.Tensor:
     if n == 0:
         return out
     lib = _ext.lib()
-    with torch.cuda.device(b.device):
+    with _ext.device_guard(b):
         scratch = _ext.lookback_scratch(n, b.device)
         err = lib.pcv_seg_start(b.data_ptr(), out.data_ptr(), n, int(level),
                                 scratch.data_ptr(), _ext.stream_ptr(b))
@@ -149,7 +149,7 @@ def leaf_update_pass(b, seg_start, leaf, found, level: int, threshold: int):
     if n == 0:
         return leaf, found
     lib = _ext.lib()
-    with torch.cuda.device(b.device):
+    with _ext.device_guard(b):
         scratch = _ext.lookback_scratch(n, b.device)
         err = lib.pcv_leaf_update(
             b.data_ptr(), seg_start.data_ptr(), leaf.data_ptr(),
@@ -172,7 +172,7 @@ def _promote(name: str, b, cur_in, cur_out, hi: int, levels: int) -> None:
     + 1 of cur_in into cur_out (the same tensor for the in-place K4)."""
     n = b.shape[0]
     lib = _ext.lib()
-    with torch.cuda.device(b.device):
+    with _ext.device_guard(b):
         tiles = -(-n // lib.pcv_promote_tile_rows())
         # A tile counter and one state a tile a level; cleared by the C
         # entry on the launch's stream.

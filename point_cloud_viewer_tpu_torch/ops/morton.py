@@ -9,7 +9,8 @@ octree.node_id.child_index_from_cube); a node at level L is the set of
 points whose codes share a 3L-bit prefix.
 
 Device form: a 63-bit code is one NON-NEGATIVE int64 (`codes_to_tensor`),
-in place of the JAX package's (hi, lo) uint32 pair.
+in place of the JAX package's (hi, lo) uint32 pair; `morton_encode_device`
+makes it from cells on the device (morton.py:148-174).
 """
 
 from __future__ import annotations
@@ -145,3 +146,57 @@ def from_jax_halves(hi: np.ndarray, lo: np.ndarray) -> torch.Tensor:
     port's grouped core never reads the values of rows >= n_real."""
     joined = join_u64(np.asarray(hi), np.asarray(lo))
     return torch.from_numpy(np.ascontiguousarray(joined).view(np.int64))
+
+
+# ---------------------------------------------------------------------------
+# Device encode (port of point_cloud_viewer_tpu/ops/morton.py:148-174)
+
+# `_spread3_u64`'s masks: each fits in 63 bits, so int64 holds them as is.
+_SPREAD_STEPS = ((32, 0x1F00000000FFFF), (16, 0x1F0000FF0000FF),
+                 (8, 0x100F00F00F00F00F), (4, 0x10C30C30C30C30C3),
+                 (2, 0x1249249249249249))
+
+
+def cells_to_tensor(cells_u32: np.ndarray, device) -> torch.Tensor:
+    """Host (N, 3) uint32 cells -> (N, 3) int32 tensor on `device`, the
+    bits reinterpreted (12 B a point up; `morton_encode_device` reads the
+    low `depth` <= 21 bits of each, so the sign never shows)."""
+    cells = np.ascontiguousarray(cells_u32, dtype=np.uint32).reshape(-1, 3)
+    return torch.from_numpy(cells.view(np.int32)).to(device)
+
+
+def _spread3_device(v: torch.Tensor) -> torch.Tensor:
+    """int64 values < 2^21 -> two zero bits between each bit, as
+    `_spread3_u64`."""
+    for shift, mask in _SPREAD_STEPS:
+        v = (v | (v << shift)) & mask
+    return v
+
+
+def morton_encode_device(cells: torch.Tensor,
+                         depth: int = MAX_DEPTH) -> torch.Tensor:
+    """(N, 3) integer cells -> (N,) int64 Morton codes (x msb) on the
+    cells' device: `join_u64` of the JAX (hi, lo) pair, bit for bit.
+
+    As the JAX unrolled loop (morton.py:148-168), only the low `depth` bits
+    of each coordinate count; they are spread with the magic numbers of
+    `_spread3_u64`, five shift/or/and steps an axis in place of 3 * depth
+    single-bit steps."""
+    if cells.dim() != 2 or cells.shape[1] != 3:
+        raise ValueError(f"cells must be (N, 3), got {tuple(cells.shape)}")
+    if not 0 <= depth <= MAX_DEPTH:
+        raise ValueError(f"depth {depth} outside [0, {MAX_DEPTH}]")
+    if cells.dtype.is_floating_point or cells.dtype == torch.bool:
+        raise ValueError(f"cells must be integers, got {cells.dtype}")
+    low = (1 << depth) - 1
+    spread = [_spread3_device(cells[:, axis].to(torch.int64) & low)
+              for axis in range(3)]
+    return (spread[0] << 2) | (spread[1] << 1) | spread[2]
+
+
+def sort_by_codes_device(codes: torch.Tensor, *values: torch.Tensor):
+    """Sort by int64 code carrying `values` along; returns (codes_sorted,
+    *values_sorted).  Stable: the JAX 2-key sort (morton.py:171-174) leaves
+    equal codes in any order, this one in index order."""
+    codes_sorted, perm = torch.sort(codes, stable=True)
+    return (codes_sorted, *(v[perm] for v in values))

@@ -52,7 +52,7 @@ def scan_1d(x: torch.Tensor, kind: str, reverse: bool = False) -> torch.Tensor:
     if n == 0:
         return out
     lib = _ext.lib()
-    with torch.cuda.device(x.device):
+    with _ext.device_guard(x):
         scratch = _ext.lookback_scratch(n, x.device)
         err = lib.pcv_scan_i32(
             x.data_ptr(), out.data_ptr(), n, KINDS[kind], int(reverse),

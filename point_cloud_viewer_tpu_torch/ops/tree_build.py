@@ -98,6 +98,45 @@ def build_tree_device_codes(
     return perm.to(torch.int32), cur, leaf
 
 
+class DeviceTreeResult(NamedTuple):
+    """build_tree_device's outputs (tree_build.py:36-42), in code-sorted
+    order; one int64 code in place of the JAX (hi, lo) pair."""
+
+    codes: torch.Tensor        # (N,) int64 sorted Morton codes
+    order: torch.Tensor        # (N,) int64 sorted -> original index
+    final_level: torch.Tensor  # (N,) u8 level each point ends up in
+    leaf_level: torch.Tensor   # (N,) u8 pre-promotion leaf level
+    t_norm: torch.Tensor       # (N, 3) f32 node-normalized coordinates
+
+
+def build_tree_device(
+    cells: torch.Tensor,  # (N, 3) integer grid cells at `depth`
+    depth: int,
+    max_split_level: int,
+    max_points_per_node: int = MAX_POINTS_PER_NODE,
+) -> DeviceTreeResult:
+    """The full build core on the cells' device (tree_build.py:718-752):
+    Morton encode, a stable sort of the codes, a gather of the cells, the
+    leaf and promotion stages (K6 and K4 on the card), and each point's
+    coordinates normalized to its final node.
+
+    t_norm = (local + 0.5) / 2^s with s = depth - final level and local the
+    cell's low s bits: local < 2^21 and the divisor an exact power of two,
+    so the f32 result is exact.  (The JAX package divides by `jnp.exp2(s)`,
+    which XLA:CPU rounds for odd s >= 13; there the two differ by a few
+    ulp.)"""
+    codes = morton.morton_encode_device(cells, depth)
+    _check_codes(codes)
+    codes, order = torch.sort(codes, stable=True)
+    sorted_cells = cells[order].to(torch.int64)
+    leaf, cur = _assign_and_promote(codes, depth, max_split_level,
+                                    max_points_per_node)
+    s = (depth - cur.to(torch.int64)).unsqueeze(1)
+    local = sorted_cells - ((sorted_cells >> s) << s)
+    t_norm = (local.to(torch.float32) + 0.5) / (1 << s).to(torch.float32)
+    return DeviceTreeResult(codes, order, cur, leaf, t_norm)
+
+
 class GroupedExchange(NamedTuple):
     """Outputs of build_tree_device_codes_grouped, in the JAX tuple order."""
 

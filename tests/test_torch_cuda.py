@@ -879,3 +879,54 @@ def test_xray_strategies_on_card_match_numpy_route(cuda, family, size):
         print(f"full-f64 heights at {size} px: {pixels} pixels differ, by "
               f"at most {most}")
         assert most <= 1
+
+
+def test_build_tree_device_on_card_matches_cpu(cuda):
+    """The full device core from cells (K6 and K4 on the card, once each)
+    against its CPU route, every output bit for bit."""
+    rng = np.random.default_rng(12)
+    cells = rng.integers(0, 2**21, (700_003, 3)).astype(np.uint32)
+    cells[: 200_000] = (cells[: 200_000] >> 9) + 1_000_000
+    cells[-1] = 2**21 - 1
+    before = (K6.leaf_stage.launches, LC.promote_stage.launches)
+    got = tb.build_tree_device(morton.cells_to_tensor(cells, cuda), 21, 21,
+                               5_000)
+    torch.cuda.synchronize()
+    assert (K6.leaf_stage.launches - before[0],
+            LC.promote_stage.launches - before[1]) == (1, 1)
+    want = tb.build_tree_device(morton.cells_to_tensor(cells, "cpu"), 21, 21,
+                                5_000)
+    for name, g, w in zip(tb.DeviceTreeResult._fields, got, want):
+        assert torch.equal(g.cpu(), w), name
+    assert len(torch.unique(want.final_level)) >= 3
+
+
+def test_sharded_tree_levels_on_two_card_shards_match_cpu_mesh(cuda):
+    """Two shards sharing the card against a two-shard CPU mesh, shard by
+    shard; K6 and K4 launched once a shard."""
+    from point_cloud_viewer_tpu_torch.parallel.mesh import make_mesh
+    from point_cloud_viewer_tpu_torch.parallel.sharded_build import (
+        sharded_morton_sort,
+        sharded_tree_levels,
+    )
+
+    rng = np.random.default_rng(13)
+    cells = rng.integers(0, 2**21, (400_001, 3)).astype(np.uint32)
+    cells[: 150_000] = (cells[: 150_000] >> 10) + 700_000
+    codes = morton.morton_encode(cells)
+    card = make_mesh(devices=[cuda, cuda])
+    cpu = make_mesh(2, device="cpu")
+    before = (K6.leaf_stage.launches, LC.promote_stage.launches)
+    got = sharded_tree_levels(codes, card, 21, 2, 21, 5_000)
+    assert (K6.leaf_stage.launches - before[0],
+            LC.promote_stage.launches - before[1]) == (2, 2)
+    want = sharded_tree_levels(codes, cpu, 21, 2, 21, 5_000)
+    for g, w in zip(got, want):
+        for x, y in zip(g, w):
+            np.testing.assert_array_equal(x, y)
+    stats, cpu_stats = {}, {}
+    for a, b in zip(sharded_morton_sort(cells, card, 21, 1.0, stats=stats),
+                    sharded_morton_sort(cells, cpu, 21, 1.0,
+                                        stats=cpu_stats)):
+        np.testing.assert_array_equal(a, b)
+    assert stats == cpu_stats

@@ -163,9 +163,9 @@ def _count_device_subbuilds(monkeypatch):
     calls = []
     real = PB._dispatch_deep_device
 
-    def recording(*args, **kwargs):
-        calls.append((len(args[1]), str(args[-1])))
-        return real(*args, **kwargs)
+    def recording(*args, device=None, **kwargs):
+        calls.append((len(args[1]), str(device)))
+        return real(*args, device=device, **kwargs)
 
     monkeypatch.setattr(PB, "_dispatch_deep_device", recording)
     return calls

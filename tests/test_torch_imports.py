@@ -81,6 +81,10 @@ _PORT_MODULES = [
     "point_cloud_viewer_tpu_torch.cli.merge_xray_quadtrees",
     "point_cloud_viewer_tpu_torch.cli.inpaint_xray_quadtree",
     "point_cloud_viewer_tpu_torch.cli.upgrade_xray_quadtree",
+    "point_cloud_viewer_tpu_torch.ops.sort",
+    "point_cloud_viewer_tpu_torch.parallel.mesh",
+    "point_cloud_viewer_tpu_torch.parallel.sharded_build",
+    "point_cloud_viewer_tpu_torch.entry",
 ]
 
 
@@ -295,6 +299,64 @@ def test_deep_and_host_builds_stand_alone(tmp_path):
         print("deep files", len(files))
     """)
     assert "deep files" in out
+
+
+def test_mesh_build_and_dryrun_stand_alone(tmp_path):
+    """With jax and the JAX package refused: a 4-shard CPU mesh build
+    byte-equal to the single-device build, a deep build with its fat cell
+    placed on the mesh, and entry.dryrun_multichip(4) with its build cut
+    to 60,001 points."""
+    out = _run_refused(f"""
+        import os
+
+        import numpy as np
+        from point_cloud_viewer_tpu_torch import entry
+        from point_cloud_viewer_tpu_torch.core.points_batch import PointsBatch
+        from point_cloud_viewer_tpu_torch.math.geometry import Aabb
+        from point_cloud_viewer_tpu_torch.octree import builder as B
+        from point_cloud_viewer_tpu_torch.parallel.mesh import make_mesh
+
+        def same(a, b):
+            files = sorted(os.listdir(a))
+            assert files == sorted(os.listdir(b))
+            for f in files:
+                x, y = (open(os.path.join(d, f), "rb").read() for d in (a, b))
+                assert x == y, f
+            return len(files)
+
+        rng = np.random.default_rng(2)
+        pos = np.concatenate([rng.random((40_000, 3)) * 30.0,
+                              10.0 + rng.normal(0.0, 0.05, (40_000, 3))])
+        batch = PointsBatch(position=pos, attributes={{
+            "color": rng.integers(0, 256, (len(pos), 3), dtype=np.uint8)}})
+        tmp = {str(tmp_path)!r}
+        mesh = make_mesh(4, device="cpu")
+        result = B.build_octree(os.path.join(tmp, "mesh"), 0.01, batch,
+                                mesh=mesh)
+        assert sum(result.shard_points) == len(pos)
+        B.build_octree(os.path.join(tmp, "one"), 0.01, batch, device="cpu")
+        files = same(os.path.join(tmp, "mesh"), os.path.join(tmp, "one"))
+
+        B._DEEP_DEVICE_MIN_N = 1_000
+        deep = PointsBatch(position=np.concatenate([
+            rng.random((104_000, 3)) * 2.5 + 7e5,
+            rng.random((3_000, 3)) * 4e6]), attributes={{}})
+        box = Aabb(np.zeros(3), np.full(3, 6.4e6))
+        phases = {{}}
+        B.build_octree(os.path.join(tmp, "dmesh"), 0.01, deep,
+                       bounding_box=box, mesh=mesh, phase_times=phases)
+        assert phases["deep_device_subbuilds"] == 1, phases
+        B.build_octree(os.path.join(tmp, "dhost"), 0.01, deep,
+                       bounding_box=box, use_device=False)
+        same(os.path.join(tmp, "dmesh"), os.path.join(tmp, "dhost"))
+
+        entry.BUILD_POINTS = 60_001
+        summary = entry.dryrun_multichip(4, device="cpu")
+        assert summary["skew_attempts"] >= 2
+        assert_nothing_refused_loaded()
+        print("mesh files", files, "dry run files", summary["files"])
+    """)
+    assert "mesh files" in out
 
 
 def test_query_stands_alone(tmp_path):

@@ -141,21 +141,6 @@ def test_build_leaves_launch_counters_at_zero_on_cpu(tmp_path):
     assert [w.launches for w in wrappers] == before
 
 
-def test_unported_paths_raise(tmp_path):
-    """Only the multi-device (mesh) build is left to port: it raises on the
-    device and on the host route, deep or not."""
-    batch = PointsBatch(position=np.random.default_rng(0).random((10, 3)),
-                        attributes={})
-    far = PointsBatch(position=np.array([[0.0, 0.0, 0.0], [1e7, 1e7, 1e7]]),
-                      attributes={})
-    out = str(tmp_path / "o")
-    for points in (batch, far):
-        for use_device in (True, False):
-            with pytest.raises(NotImplementedError, match="not yet ported"):
-                build_octree(out, 0.001, points, use_device=use_device,
-                             mesh=object(), device="cpu")
-
-
 def _write_tiny_ply(path, n, seed):
     rng = np.random.default_rng(seed)
     rows = np.empty(n, dtype=[("x", "<f8"), ("y", "<f8"), ("z", "<f8"),
@@ -191,20 +176,6 @@ def test_cli_matches_jax_cli(tmp_path, capsys):
     assert_dirs_byte_equal(ref, port, context="port CLI vs JAX CLI")
     assert "read ply" in phases and "device core" in phases
     assert "Built octree with 2000 points" in capsys.readouterr().out
-
-
-@pytest.mark.parametrize(
-    "flags", [["--mesh", "2"], ["--mesh", "2", "--no-use_device"],
-              ["--mesh", "4", "--device", "cpu"]])
-def test_cli_unported_routes_exit(tmp_path, flags, capsys):
-    """--mesh, on either route, is the one CLI route left to port."""
-    ply = str(tmp_path / "tiny.ply")
-    _write_tiny_ply(ply, 10, seed=1)
-    args = [ply, "--output_directory", str(tmp_path / "o"), *flags]
-    with pytest.raises(SystemExit) as exc:
-        cli_main(args)
-    assert exc.value.code != 0
-    assert "not yet ported" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("positional", [False, True])

@@ -406,7 +406,7 @@ def test_cli_streaming_matches_jax_cli(tmp_path, capsys):
 @pytest.mark.parametrize("flags,use_device,message", [
     (["--spill_directory", "s"], True, "requires --streaming"),
     (["--streaming", "--mesh", "2"], True, "not supported with --streaming"),
-    (["--mesh", "2"], False, "not yet ported"),
+    (["--streaming", "--mesh", "2"], False, "not supported with --streaming"),
 ])
 def test_cli_streaming_argument_errors(tmp_path, capsys, flags, use_device,
                                        message):
