@@ -23,9 +23,12 @@ Phases (any failure raises and the exit code is non-zero):
                 card, so the card alone is timed; K3 each call from the
                 state before its level), K1 over torch.cumsum;
   4. core    -- the device derivation (build_tree_device_codes_grouped) at
-                16M and 64M synthetic codes on the card against the same
-                call on CPU tensors (the kernels' plain versions), every
-                output bit for bit; where its time goes, step by step
+                16M and 64M synthetic codes on the card; at 16M against
+                the same call on CPU tensors (the kernels' plain
+                versions), every output bit for bit, at 64M its level
+                counts against a bincount of its levels (the CPU route
+                there is cut for the time limit); where its time goes,
+                step by step
                 (code sort, leaf stage, promotion stage, key sort, extras);
   5. e2e     -- a 16M-point PLY through the port's CLI
                 (cli.build_octree, whose defaults derive the tree on the
@@ -149,13 +152,37 @@ Phases (any failure raises and the exit code is non-zero):
                 _DEEP_DEVICE_MIN_N dispatched once (one cell on shards
                 sharing one card cannot show the placement;
                 tests/test_torch_mesh_build.py checks it on cpu shards);
+  13. viewers (run after 12) -- a. whether libEGL.so.1 loads (found
+                without creating a context); where it does, the GL
+                context's vendor, renderer and version, cli.view --gl on
+                the card over phase 5's octree (K5 launched, a final frame
+                that is not all background), then 8 orbit views whose
+                visible lists on the card equal the CPU route's, drawn
+                through PointsRendererGL (draw and readback ms) and held to
+                the software rasterizer by occupancy (IoU > 0.75 on 8x8
+                blocks); where it does not, a line saying so with
+                NVIDIA_DRIVER_CAPABILITIES; b. run_windowed over the port's
+                libSDL2 stub (g++), GL frames where a. found EGL, else
+                software, culling on the card, keys w, left, CTRL+SHIFT+1
+                and CTRL+1: every frame presented, a last frame that is not
+                all background, K5 launched, the pose saved; c. the points
+                web server on port 0: /init_tree, /, /visible_nodes of 8
+                orbit views byte-equal to Octree.visible_node_names_json,
+                every visible list POSTed to /nodes_data in the client's
+                batches of 50, each blob byte-equal to
+                build_nodes_data_blob and the first of each view decoded
+                (counts, positions within the resolution), ms a request;
+                d. the x-ray server over phase 11's quadtree: /meta as its
+                meta.pb, 16 tiles byte-equal to their files, 404 for an
+                unknown node and path;
   8. probe + bounds -- K7 (copy, triad, add3) against its plain version
                 at 128,000,000 and ragged n, bit for bit; the streaming-
                 bandwidth probes (hbm_probes: add_1d, add_2d, copy, triad,
                 add3) and torch.add's time; then, for K1-K7, the least bytes
                 a launch moves, its launches per main-path call (16M
                 in-core build, streamed bucket, deep 16M build, 16M mesh
-                build on 4 shards, viewer frame), its bound
+                build on 4 shards, viewer frame, --gl frame, windowed
+                frame), its bound
                 (bytes over the card's memory rate -- the larger of its
                 published peak and the measured probe rate -- or K5's f32
                 operations over the card's published f32 peak where
@@ -191,6 +218,7 @@ import numpy as np
 SIZES = (16_000_017, 64_000_017)     # phase 3: ragged element counts
 UNALIGNED = (1, 2, 3)                # phase 3: element offsets of views
 CORE_SIZES = (16_000_000, 64_000_000)  # phase 4: synthetic codes
+CORE_CPU_MAX = 16_000_000            # phase 4: the CPU route's largest n
 E2E_POINTS = 16_000_000              # phase 5: the README's in-core cloud
 BIG_POINTS = 64_000_000              # phase 7c: a ~2 GB PLY, streamed
 LEAF_MAX_POINTS = 100_000            # MAX_POINTS_PER_NODE
@@ -228,6 +256,13 @@ MESH_SHARDS = 4                      # phase 12: shards sharing the card
 MESH_CORE_CHECK = 1_000_000          # phase 12a: whole result vs CPU route
 MESH_SKEW = 64_000                   # phase 12b: the dry run's skewed cloud
 DEEP_MESH_SHARDS = 2                 # phase 12e
+VIEW_SIZE = (320, 240)               # phase 13a/b: frame width, height
+VIEW_MATRICES = 8                    # phase 13a/c: orbit views
+GL_DRAW_POINTS = 2_000_000           # phase 13a: points drawn a view, at most
+WINDOW_FRAMES = 12                   # phase 13b: frames of the stub shell
+WINDOW_HZ = 60                       # phase 13b: the stub's vsync
+WEB_BATCH = 50                       # phase 13c: the web client's batch
+XRAY_SERVED_TILES = 16               # phase 13d
 # f32 rate outside the tensor cores, NVIDIA H100 SXM data sheet (an FMA
 # counts two operations), at the 700 W power limit.
 FP32_PEAK_OPS = 67e12
@@ -746,7 +781,8 @@ def core_split(codes, n: int) -> dict:
 
 def phase_core() -> None:
     """The device derivation on the card against the same call on CPU
-    tensors, every output bit for bit."""
+    tensors, every output bit for bit, up to CORE_CPU_MAX codes; past it,
+    the card's level counts against a bincount of its final levels."""
     import torch
 
     from point_cloud_viewer_tpu_torch.ops import morton
@@ -784,6 +820,19 @@ def phase_core() -> None:
             "ms): " + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
             + f"; sum {sum(split.values()):.4f}")
 
+        if n > CORE_CPU_MAX:
+            counts = out.level_counts.to(torch.int64)
+            ok = torch.equal(counts, torch.bincount(
+                out.final.to(torch.int64), minlength=DEPTH + 2))
+            log(f"core n={n}: no CPU route past {CORE_CPU_MAX} (the time "
+                f"limit); card level_counts == bincount(final): {ok}; "
+                f"extras_total={int(out.extras_total)}")
+            if not ok:
+                raise AssertionError(f"core n={n}: level_counts differ from "
+                                     "bincount(final)")
+            del out, on
+            torch.cuda.empty_cache()
+            continue
         t0 = time.perf_counter()
         ref = run("cpu")
         log(f"core n={n}: CPU route {time.perf_counter() - t0:.3f} s")
@@ -2134,9 +2183,13 @@ def phase_query(wrappers: dict, tmp: str) -> None:
     want = union.contains(pts)
     masks = {d: DF.point_filter_mask(union, pts, device=d)
              for d in (dev, torch.device("cpu"))}
-    if not (all(np.array_equal(v, host) for v in ids.values())
-            and all(np.array_equal(v, want) for v in masks.values())):
-        raise AssertionError("query S2: ids or union masks differ")
+    bad = [f"{what} on {d.type}: {int(np.count_nonzero(got != ref))} rows"
+           for what, by_device, ref in (("leaf ids", ids, host),
+                                        ("union mask", masks, want))
+           for d, got in by_device.items() if not np.array_equal(got, ref)]
+    if bad:
+        raise AssertionError("query S2: differs from the host: "
+                             + "; ".join(bad))
     log(f"query S2: {len(pts)} points on all six faces ({int((host >> np.uint64(63)).sum())} "
         f"ids with bit 63 set, {int(want.sum())} in a {len(union)}-cell "
         f"union); leaf ids and union masks card == CPU route == host")
@@ -2237,7 +2290,7 @@ def xray_line(s: dict) -> str:
             f"{s['leaves_s']:.3f} s, pyramid {s['pyramid_s']:.3f} s)")
 
 
-def phase_xray(wrappers: dict, tmp: str, octree_dir: str) -> None:
+def phase_xray(wrappers: dict, tmp: str, octree_dir: str) -> str:
     """11: the x-ray quadtree path on phase 5's in-core octree (16M points;
     a 200 x 200 x 40 m box and its clusters) at XRAY_TILE px tiles of
     XRAY_RESOLUTION m a pixel: the cloud fits 16 x 16 tiles of 12.8 m, so
@@ -2470,8 +2523,11 @@ def phase_xray(wrappers: dict, tmp: str, octree_dir: str) -> None:
         f"{xray_line(s)}, inpainted in {sub_s:.3f} s: {len(after)} tiles "
         f"decode, transparent leaf pixels {holes[0]} -> {holes[1]}; said "
         f"{said4.strip().splitlines()[-1]!r}")
+    served = os.path.join(tmp, "xray_served")
+    os.replace(full, served)
     shutil.rmtree(root)
     log(f"xray: phase 11 took {time.perf_counter() - t_phase:.3f} s")
+    return served
 
 
 # --- phase 12: the multi-device build ----------------------------------------
@@ -2728,6 +2784,395 @@ def phase_mesh(wrappers: dict, tmp: str, ply16: str, incore16: str,
     return launches
 
 
+# --- phase 13: the viewers beyond the headless loop and the web servers -----
+
+
+def egl_library() -> tuple:
+    """(whether libEGL.so.1 loads, what was found): the library the GL
+    bootstrap (viewer/gl/api.py) loads, found without creating a context."""
+    import ctypes
+    import ctypes.util
+
+    found = ctypes.util.find_library("EGL")
+    try:
+        ctypes.CDLL("libEGL.so.1")
+    except OSError as e:
+        return False, f"find_library('EGL') -> {found}; libEGL.so.1: {e}"
+    return True, f"find_library('EGL') -> {found}; libEGL.so.1 loads"
+
+
+def visible_list(session, matrix) -> list:
+    """The node rows of one frame's visible set, in the order the viewer
+    draws them (PointCloudRenderer._device_visible, uncapped)."""
+    from point_cloud_viewer_tpu_torch.math.geometry import Frustum
+
+    order, _, visible = session.step(Frustum.from_matrix4(matrix))
+    return [int(i) for i in order[:int(visible.sum())]]
+
+
+def occupancy_iou(a, b) -> float:
+    """IoU of the 8x8 blocks that hold a pixel other than each frame's
+    corner pixel (tests/test_gl_renderer.py:263-311)."""
+    h, w = (a.shape[0] // 8) * 8, (a.shape[1] // 8) * 8
+
+    def blocks(img):
+        mask = np.any(img[:h, :w, :3] != img[0, 0, :3], axis=-1)
+        return mask.reshape(h // 8, 8, w // 8, 8).any(axis=(1, 3))
+
+    oa, ob = blocks(a), blocks(b)
+    return float((oa & ob).sum() / max(1, (oa | ob).sum()))
+
+
+def phase_gl(octree_dir: str, tmp: str) -> dict:
+    """13a: where libEGL.so.1 loads, the GL context's strings, cli.view --gl
+    on the card (K5 launches, a final frame that is not all background),
+    then VIEW_MATRICES orbit views: the visible set from K5 on the card
+    equals the CPU route's, and its first GL_DRAW_POINTS points drawn
+    through PointsRendererGL match the software rasterizer by occupancy
+    (IoU > 0.75).  Where the library is absent, says so with nvidia-smi's
+    name and NVIDIA_DRIVER_CAPABILITIES.  Returns {"present", "launches"}."""
+    from point_cloud_viewer_tpu_torch.cli.view import main as view_main
+    from point_cloud_viewer_tpu_torch.octree.octree import Octree
+    from point_cloud_viewer_tpu_torch.ops import cull_cuda as CC
+    from point_cloud_viewer_tpu_torch.ops.culling import DeviceCullSession
+    from point_cloud_viewer_tpu_torch.viewer.software_raster import (
+        rasterize_points)
+
+    present, found = egl_library()
+    if not present:
+        log(f"viewers: no EGL library: {found}; nvidia-smi: {CARD}; "
+            f"NVIDIA_DRIVER_CAPABILITIES="
+            f"{os.environ.get('NVIDIA_DRIVER_CAPABILITIES')}; the GL draw "
+            "(13a) is not run on this machine")
+        return {"present": False, "launches": None}
+    from point_cloud_viewer_tpu_torch.viewer.gl import renderer as GR
+
+    width, height = VIEW_SIZE
+    ctx = GR.GlContext(width=width, height=height)
+    strings = [ctx.gl.glGetString(k).decode() for k in (0x1F00, 0x1F01,
+                                                          0x1F02)]
+    log(f"viewers: {found}; GL vendor {strings[0]!r}, renderer "
+        f"{strings[1]!r}, version {strings[2]!r}")
+
+    shot = os.path.join(tmp, "view_gl.png")
+    buf = io.StringIO()
+    CC.cull_lod.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = view_main([octree_dir, "--gl", "--device", DEVICE, "--frames",
+                        str(VIEW_FRAMES), "--width", str(width), "--height",
+                        str(height), "--screenshot", shot])
+    wall = time.perf_counter() - t0
+    launches = CC.cull_lod.launches
+    image = decode_png(shot)
+    painted = int((image != image[0, 0]).any(axis=2).sum())
+    log(f"viewers: cli.view --gl --frames {VIEW_FRAMES} on the card: rc "
+        f"{rc}, {wall:.3f} s, K5 launches {launches}, {painted} "
+        f"non-background pixels; cli said: {buf.getvalue().strip()}")
+    if rc != 0 or launches <= 0 or painted <= 0:
+        raise AssertionError(f"viewers: cli.view --gl: rc {rc}, K5 "
+                             f"launches {launches}, painted {painted}")
+
+    octree = Octree.from_directory(octree_dir)
+    center = octree.bounding_box.center()
+    diag = float(np.linalg.norm(octree.bounding_box.diag()))
+    sessions = [DeviceCullSession(octree.cube_mins, octree.cube_edges,
+                                  octree.num_points, device=d)
+                for d in (DEVICE, "cpu")]
+    ctx.make_current()  # cli.view left its own context current
+    r = GR.PointsRendererGL(ctx)
+    r.point_size = 1.0
+    draw_ms, read_ms, ious = [], [], []
+    for k, m in enumerate(orbit_matrices(center, diag, VIEW_MATRICES, width,
+                                         height)):
+        card, cpu = (visible_list(sess, m) for sess in sessions)
+        if card != cpu:
+            raise AssertionError(f"viewers: view {k}: the card's visible "
+                                 f"list differs from the CPU route's")
+        nodes, points, pos_parts, col_parts = [], 0, [], []
+        for i in card:
+            if points >= GL_DRAW_POINTS:
+                break
+            node_id = octree.node_ids[i]
+            meta, pos, col = octree.get_node_data(node_id)
+            enc = meta.position_encoding
+            nodes.append(r.make_node_buffer(
+                np.frombuffer(pos, enc.numpy_dtype).reshape(-1, 3),
+                np.frombuffer(col, np.uint8).reshape(-1, 3), enc,
+                meta.cube_min, meta.edge_length))
+            batch = octree.points_in_node(node_id, attributes=["color"])
+            pos_parts.append(batch.position)
+            col_parts.append(batch.attributes["color"])
+            points += meta.num_points
+        t0 = time.perf_counter()
+        r.begin_frame()
+        for node in nodes:
+            r.draw_node(node, m, camera_origin=center)
+        ctx.gl.glFinish()
+        t1 = time.perf_counter()
+        frame = r.read_frame()
+        t2 = time.perf_counter()
+        for node in nodes:
+            node.destroy()
+        draw_ms.append((t1 - t0) * 1e3)
+        read_ms.append((t2 - t1) * 1e3)
+        soft = rasterize_points(np.concatenate(pos_parts),
+                                np.concatenate(col_parts), m, width, height)
+        ious.append(occupancy_iou(frame, soft))
+        if ious[-1] <= 0.75:
+            raise AssertionError(f"viewers: view {k}: GL vs software "
+                                 f"occupancy IoU {ious[-1]:.3f} <= 0.75")
+        log(f"viewers: GL view {k}: {len(card)} visible nodes (card == "
+            f"cpu), {len(nodes)} drawn, {points} points, draw "
+            f"{draw_ms[-1]:.3f} ms, readback {read_ms[-1]:.3f} ms, IoU "
+            f"{ious[-1]:.3f}")
+    log(f"viewers: GL frame {width}x{height} median draw "
+        f"{statistics.median(draw_ms):.3f} ms, readback "
+        f"{statistics.median(read_ms):.3f} ms over {VIEW_MATRICES} views; "
+        f"IoU min {min(ious):.3f}")
+    return {"present": True, "launches": launches}
+
+
+def phase_window(octree_dir: str, use_gl: bool) -> int:
+    """13b: run_windowed through SdlBackend over the port's libSDL2 stub
+    (built with g++), culling on the card, keys w, left, CTRL+SHIFT+1 (save
+    pose slot 0) and CTRL+1 (load it) scripted as C events; requires
+    WINDOW_FRAMES presents, a last frame that drew nodes and is not all
+    background, K5 launched and the pose saved.  The stub presents at
+    once, where a window's present waits for the display: each present
+    is held to WINDOW_HZ, as vsync would, so the visible-node thread and
+    the loaders run beside the frames as they do under a real window.
+    Returns K5's launches in the run."""
+    import ctypes
+
+    from point_cloud_viewer_tpu_torch import native
+    from point_cloud_viewer_tpu_torch.ops import cull_cuda as CC
+    from point_cloud_viewer_tpu_torch.viewer.sdl_shell import (
+        SdlBackend, run_windowed)
+
+    t0 = time.perf_counter()
+    path = native.sdl2_stub_path()
+    build_s = time.perf_counter() - t0
+    stub = ctypes.CDLL(path)
+    stub.pcv_stub_get.restype = ctypes.c_int
+    stub.pcv_stub_get.argtypes = [ctypes.c_char_p]
+    stub.pcv_stub_pixel_sum.restype = ctypes.c_uint64
+    stub.pcv_stub_reset()
+    ctrl, shift = 0x0040, 0x0001
+    for down, up, mod in ((26, 26, 0), (80, 80, 0), (30, None, ctrl | shift),
+                          (30, None, ctrl)):
+        stub.pcv_stub_push_keydown(down, mod)
+        stub.pcv_stub_push_frame_end()
+        if up is not None:
+            stub.pcv_stub_push_keyup(up)
+    pose = os.path.join(octree_dir, "poses.json")
+    if os.path.exists(pose):
+        os.remove(pose)
+    class VsyncBackend(SdlBackend):
+        last = 0.0
+
+        def present(self, image):
+            super().present(image)
+            wait = self.last + 1.0 / WINDOW_HZ - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            self.last = time.perf_counter()
+
+    width, height = VIEW_SIZE
+    CC.cull_lod.launches = 0
+    t0 = time.perf_counter()
+    stats = run_windowed(octree_dir,
+                         backend=VsyncBackend(width, height, lib_path=path),
+                         width=width, height=height, use_gl=use_gl,
+                         max_frames=WINDOW_FRAMES, device=DEVICE)
+    wall = time.perf_counter() - t0
+    launches = CC.cull_lod.launches
+    presents = stub.pcv_stub_get(b"render_present")
+    pixel_sum = stub.pcv_stub_pixel_sum()
+    background = width * height * (17 + 17 + 20 + 255)
+    saved = os.path.exists(pose)
+    if saved:
+        with open(pose) as f:
+            saved = "0" in json.load(f)
+        os.remove(pose)
+    log(f"viewers: run_windowed over the SDL stub (g++ {build_s:.3f} s), "
+        f"{'GL' if use_gl else 'software'} frames {width}x{height} held to "
+        f"{WINDOW_HZ} Hz, cull on the card: {presents} presents in "
+        f"{wall:.3f} s "
+        f"({wall / WINDOW_FRAMES * 1e3:.3f} ms a frame), K5 launches "
+        f"{launches}, last frame {stats.nodes_drawn}/{stats.visible_nodes} "
+        f"nodes, {stats.points_drawn} points, pixel sum {pixel_sum} "
+        f"(background alone {background}), pose saved {saved}")
+    if (presents != WINDOW_FRAMES or not 0 < pixel_sum != background
+            or stats.nodes_drawn <= 0 or launches <= 0 or not saved):
+        raise AssertionError(
+            f"viewers: windowed shell: presents {presents}, pixel sum "
+            f"{pixel_sum}, K5 launches {launches}, pose saved {saved}")
+    return launches
+
+
+def http(url: str, body=None) -> tuple:
+    """(status, body, ms) of one request, error answers included."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(urllib.request.Request(
+                url, data=body), timeout=120) as r:
+            status, data = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, data = e.code, e.read()
+    return status, data, (time.perf_counter() - t0) * 1e3
+
+
+@contextlib.contextmanager
+def serving(server):
+    """Run an http.server on a thread; yields its base URL."""
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{server.server_address[1]}"
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+
+
+def ms_line(ms: list) -> str:
+    return (f"{len(ms)} requests, median {statistics.median(ms):.3f} ms, "
+            f"max {max(ms):.3f} ms")
+
+
+def phase_web(octree_dir: str) -> None:
+    """13c: the points web server over phase 5's octree on port 0:
+    /init_tree and / as the files, /visible_nodes for VIEW_MATRICES orbit
+    views byte-equal to Octree.visible_node_names_json, and every visible
+    list POSTed to /nodes_data in the client's batches of WEB_BATCH, each
+    blob byte-equal to build_nodes_data_blob; the first batch of each view
+    decoded per the module docstring's layout (counts as the metas,
+    positions within the octree's resolution of points_in_node's)."""
+    import struct
+
+    from point_cloud_viewer_tpu_torch.octree.node_id import NodeId
+    from point_cloud_viewer_tpu_torch.octree.octree import Octree
+    from point_cloud_viewer_tpu_torch.viewer import web_backend as WB
+
+    t_phase = time.perf_counter()
+    tree_id = os.path.basename(octree_dir)
+    octree = Octree.from_directory(octree_dir)
+    center = octree.bounding_box.center()
+    diag = float(np.linalg.norm(octree.bounding_box.diag()))
+    with open(WB._CLIENT_HTML, "rb") as f:
+        page = f.read()
+    vis_ms, data_ms, served = [], [], 0
+    state = WB.AppState(prefix=os.path.dirname(octree_dir),
+                        init_octree_id=tree_id)
+    with serving(WB.make_server(state, port=0)) as base:
+        if http(base + "/init_tree")[:2] != (200, tree_id.encode()):
+            raise AssertionError("web: /init_tree")
+        if http(base + "/")[:2] != (200, page):
+            raise AssertionError("web: / is not viewer/client.html")
+        for k, m in enumerate(orbit_matrices(center, diag, VIEW_MATRICES,
+                                             *VIEW_SIZE)):
+            param = ",".join(repr(float(v)) for v in m.T.reshape(-1))
+            status, body, ms = http(
+                f"{base}/visible_nodes/{tree_id}/?matrix={param}")
+            vis_ms.append(ms)
+            if status != 200 or body != octree.visible_node_names_json(m):
+                raise AssertionError(f"web: view {k}: /visible_nodes "
+                                     f"{status} differs")
+            names = json.loads(body)
+            for b in range(0, len(names), WEB_BATCH):
+                batch = names[b:b + WEB_BATCH]
+                status, blob, ms = http(f"{base}/nodes_data/{tree_id}/",
+                                        json.dumps(batch).encode())
+                data_ms.append(ms)
+                served += len(blob)
+                if status != 200 or blob != WB.build_nodes_data_blob(
+                        octree, batch):
+                    raise AssertionError(f"web: view {k}: /nodes_data "
+                                         f"{status} differs")
+                if b:
+                    continue
+                off = 0
+                for name in batch:
+                    node_id = NodeId.from_str(name)
+                    meta = octree.node_meta(node_id)
+                    mins = struct.unpack_from("<ddd", blob, off)
+                    edge, = struct.unpack_from("<d", blob, off + 24)
+                    count, bpc = struct.unpack_from("<IB", blob, off + 32)
+                    off = (off + 37 + 7) & ~7
+                    t = np.frombuffer(blob, {1: "<u1", 2: "<u2", 4: "<f4",
+                                             8: "<f8"}[bpc],
+                                      count=3 * count, offset=off)
+                    scale = {1: 255.0, 2: 65535.0}.get(bpc, 1.0)
+                    pos = (t.reshape(-1, 3) / scale) * edge + mins
+                    truth = octree.points_in_node(node_id, ["color"]).position
+                    off = (off + 3 * count * bpc + 7) & ~7
+                    off = (off + 3 * count + 7) & ~7
+                    err = float(np.abs(pos - truth).max()) if count else 0.0
+                    if (count != meta.num_points
+                            or bpc != meta.position_encoding
+                            .bytes_per_coordinate
+                            or err > octree.resolution):
+                        raise AssertionError(f"web: view {k}: node {name}: "
+                                             f"decode off by {err}")
+            log(f"web: view {k}: {len(names)} visible nodes, "
+                f"{-(-len(names) // WEB_BATCH)} /nodes_data batches")
+    log(f"web: /visible_nodes {ms_line(vis_ms)}; /nodes_data (batches of "
+        f"{WEB_BATCH}) {ms_line(data_ms)}, {served} bytes served; phase "
+        f"13c {time.perf_counter() - t_phase:.3f} s")
+
+
+def phase_xray_server(xray_dir: str) -> None:
+    """13d: the x-ray server over phase 11's quadtree on port 0: /meta as
+    the meta.pb says, XRAY_SERVED_TILES tiles byte-equal to their files,
+    an unknown node and an unknown path answered 404."""
+    from point_cloud_viewer_tpu_torch.xray import backend as XB
+    from point_cloud_viewer_tpu_torch.xray.meta import XrayMeta
+
+    meta = XrayMeta.from_directory(xray_dir)
+    want = json.dumps({
+        "bounding_rect": {"min_x": meta.bounding_rect.min_x,
+                          "min_y": meta.bounding_rect.min_y,
+                          "edge_length": meta.bounding_rect.edge_length},
+        "tile_size": meta.tile_size, "deepest_level": meta.deepest_level,
+    }).encode()
+    tiles = sorted(f[:-4] for f in os.listdir(xray_dir) if f.endswith(".png"))
+    rng = np.random.default_rng(13)
+    picked = sorted(rng.choice(tiles, XRAY_SERVED_TILES, replace=False))
+    tile_ms = []
+    with serving(XB.make_server(xray_dir, port=0)) as base:
+        if http(base + "/meta")[:2] != (200, want):
+            raise AssertionError("xray server: /meta")
+        for tile in picked:
+            status, body, ms = http(f"{base}/node_image/{tile}")
+            tile_ms.append(ms)
+            with open(os.path.join(xray_dir, tile + ".png"), "rb") as f:
+                if (status, body) != (200, f.read()):
+                    raise AssertionError(f"xray server: tile {tile}")
+        for path in ("/node_image/r9", "/nosuch"):
+            if http(base + path)[0] != 404:
+                raise AssertionError(f"xray server: {path} is not 404")
+    log(f"xray server: /meta as meta.pb, {len(picked)} of {len(tiles)} "
+        f"tiles byte-equal to their files ({ms_line(tile_ms)}), unknown "
+        "node and path 404")
+
+
+def phase_viewers(octree_dir: str, xray_dir: str, tmp: str) -> dict:
+    """13: the GL viewer (a), the windowed shell (b), the points web server
+    (c) and the x-ray server (d); returns K5's launches on a and b."""
+    t_phase = time.perf_counter()
+    gl = phase_gl(octree_dir, tmp)
+    window = phase_window(octree_dir, gl["present"])
+    phase_web(octree_dir)
+    phase_xray_server(xray_dir)
+    shutil.rmtree(xray_dir)
+    log(f"viewers: phase 13 took {time.perf_counter() - t_phase:.3f} s")
+    return {"gl": gl["launches"], "window": window}
+
+
 # --- phase 8: K7, the probes, and every kernel's bound -------------------
 
 
@@ -2827,7 +3272,8 @@ def bounds(record: dict, probes: dict, per_call: dict) -> dict:
                 f"{setup['ms'] / setup['bound_ms']:.2f}x, device "
                 + ("not measured" if dms is None else
                    f"{dms:.4f} ms = {dms / setup['bound_ms']:.2f}x"))
-        calls = ", ".join(f"{where} {n:.3f}" for where, n in per_call[k].items())
+        calls = ", ".join(f"{where} {'not run' if n is None else f'{n:.3f}'}"
+                          for where, n in per_call[k].items())
         log(f"bound {k}: {rec['bytes']} B"
             + (f", {rec['ops']} f32 ops" if "ops" in rec else "")
             + f"; launches per call: {calls}; bound {bound:.4f} ms ({by}); "
@@ -2939,16 +3385,20 @@ def main() -> int:
         streamed, buckets = phase_streaming(build, tmp, ply, octree_dir,
                                             incore_wall)
         phase_query(build, tmp)
-        phase_xray({**build, "K5": CC.cull_lod, "K7": K7.stream_probe}, tmp,
-                   octree_dir)
+        xray_dir = phase_xray({**build, "K5": CC.cull_lod,
+                               "K7": K7.stream_probe}, tmp, octree_dir)
         mesh = phase_mesh(build, tmp, ply, octree_dir, incore_phases,
                           deep_dir)
+        viewers = phase_viewers(octree_dir, xray_dir, tmp)
         log(f"launches on the in-core path (phase 5) {json.dumps(incore)}; "
             f"on the streaming path (phase 7c, 16M, {buckets} buckets) "
             f"{json.dumps(streamed)}; on the deep 16M build (phase 9) "
             f"{json.dumps(deep)}; on the 16M mesh build (phase 12c, "
             f"{MESH_SHARDS} shards) {json.dumps(mesh)}; K5 in the viewer "
-            f"(phase 6c, {VIEW_FRAMES} frames) {launches['K5']}")
+            f"(phase 6c, {VIEW_FRAMES} frames) {launches['K5']}, in "
+            f"cli.view --gl (phase 13a, {VIEW_FRAMES} frames) "
+            f"{viewers['gl']}, in the windowed shell (phase 13b, "
+            f"{WINDOW_FRAMES} frames) {viewers['window']}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches["K7"], probes = phase_probe(record)
@@ -2971,7 +3421,12 @@ def main() -> int:
                     "deep 16M build": deep.get(k, 0),
                     f"mesh 16M build ({MESH_SHARDS} shards)": mesh.get(k, 0),
                     "viewer frame": (launches["K5"] / VIEW_FRAMES
-                                     if k == "K5" else 0)}
+                                     if k == "K5" else 0),
+                    "--gl frame": (None if viewers["gl"] is None else
+                                   viewers["gl"] / VIEW_FRAMES
+                                   if k == "K5" else 0),
+                    "windowed frame": (viewers["window"] / WINDOW_FRAMES
+                                       if k == "K5" else 0)}
                 for k in kernels}
     bound = bounds(record, probes, per_call)
 

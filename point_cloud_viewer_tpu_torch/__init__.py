@@ -8,9 +8,10 @@ plain PyTorch version beside it that CPU tensors take.  This package
 imports torch and nothing of the JAX package: the host layers it needs
 (core, io, protos, math, octree.node_id, octree.octree, ops.codec, native,
 query.location, s2_cells, utils.progress, utils.extension, viewer.camera,
-viewer.software_raster, and the x-ray quadtree algebra, meta, colormaps,
-merge and inpaint) are its own copies, each citing the source lines it
-was copied from.
+viewer.software_raster, the x-ray quadtree algebra, meta, colormaps,
+merge and inpaint, the GL pipeline, terrain, the SDL shell's input
+mappings and both web servers) are its own copies, each citing the
+source lines it was copied from.
 """
 
 __version__ = "0.1.0"

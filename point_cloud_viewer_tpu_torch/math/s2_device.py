@@ -10,7 +10,12 @@ its own.  Eager PyTorch runs one kernel an operation, so it does; this
 module therefore uses no fused form (`addcmul`, `lerp`, `alpha=`,
 `torch.compile`) that could contract a multiply and an add into an FMA.
 CUDA's f64 division and sqrt are correctly rounded, and `torch.argmax`
-returns the first maximum, as `np.argmax` does.
+returns the first maximum, as `np.argmax` does.  PyTorch's CPU f64 sqrt is
+not correctly rounded: it is one ulp off on some inputs (sqrt of
+2.091844451100786), and now and then, after another parallel op, one
+worker thread's chunk comes out far more than one ulp off, enough to move
+the floor in st_to_ij.  So on CPU tensors `_sqrt` takes numpy's sqrt, the
+host's own; on the card it is `torch.sqrt`.
 
 Ids are held as int64 bit patterns of the uint64 ids: PyTorch's uint64
 lacks `<<`, `<=` and `searchsorted` on the CPU.  Shifts, `|` and the final
@@ -54,9 +59,17 @@ def _tables(device: torch.device) -> tuple:
             (k * 2 * s2._LOOKUP_BITS).to(device))
 
 
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded f64 sqrt on x's device (see the module
+    docstring for why CPU tensors go through numpy)."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(x.numpy()))
+    return torch.sqrt(x)
+
+
 def _uv_to_st(w: torch.Tensor) -> torch.Tensor:
-    pos = 0.5 * torch.sqrt(torch.clamp_min(1.0 + 3.0 * w, 0.0))
-    neg = 1.0 - 0.5 * torch.sqrt(torch.clamp_min(1.0 - 3.0 * w, 0.0))
+    pos = 0.5 * _sqrt(torch.clamp_min(1.0 + 3.0 * w, 0.0))
+    neg = 1.0 - 0.5 * _sqrt(torch.clamp_min(1.0 - 3.0 * w, 0.0))
     return torch.where(w >= 0.0, pos, neg)
 
 

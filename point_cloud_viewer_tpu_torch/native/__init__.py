@@ -67,6 +67,33 @@ def build() -> float:
     return build_seconds
 
 
+_STUB_SRC = os.path.join(_DIR, "sdl2_stub.cpp")
+_STUB_SO = os.path.join(BUILD_DIR, "libsdl2_stub.so")
+
+
+def sdl2_stub_path() -> str:
+    """The scriptable libSDL2 double (sdl2_stub.cpp, a copy of the JAX
+    package's native/sdl2_stub.cpp) compiled with g++ into BUILD_DIR with
+    the flags of its tests (tests/test_sdl_stub.py), rebuilt when the
+    source is newer; returns the library's path.  SdlBackend(lib_path=...)
+    loads it in the tests and on the card.  Raises RuntimeError when g++
+    fails."""
+    with _lock:
+        if (os.path.exists(_STUB_SO)
+                and os.path.getmtime(_STUB_SO) >= os.path.getmtime(_STUB_SRC)):
+            return _STUB_SO
+        tmp = f"{_STUB_SO}.build.{os.getpid()}"
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        try:
+            subprocess.run(["g++", "-shared", "-fPIC", "-O1", "-o", tmp,
+                            _STUB_SRC], check=True, capture_output=True,
+                           timeout=120)
+        except (subprocess.SubprocessError, FileNotFoundError) as e:
+            raise RuntimeError(f"g++ could not build {_STUB_SO}: {e}") from e
+        os.replace(tmp, _STUB_SO)
+        return _STUB_SO
+
+
 def lib() -> Optional[ctypes.CDLL]:
     global _lib, _tried
     with _lock:

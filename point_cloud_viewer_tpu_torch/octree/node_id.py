@@ -1,5 +1,5 @@
 """Octree NodeId algebra (copy of point_cloud_viewer_tpu/octree/node_id.py:
-20-199, trimmed to what the builders and the octree call).
+20-199, trimmed to what the builders, the octree and the web server call).
 
 A NodeId packs an 8-bit level and a 120-bit base-8 path into a u128 (held as
 a Python int for scalars, or as (level u8, path u64) array pairs for the
@@ -29,6 +29,14 @@ class NodeId:
     @classmethod
     def from_level_index(cls, level: int, index: int) -> "NodeId":
         return cls((level << 120) | index)
+
+    @classmethod
+    def from_str(cls, name: str) -> "NodeId":
+        if not name.startswith("r"):
+            raise ValueError(f"invalid node name {name!r}")
+        level = len(name) - 1
+        index = int(name[1:], 8) if level > 0 else 0
+        return cls.from_level_index(level, index)
 
     @property
     def level(self) -> int:

@@ -26,9 +26,9 @@ cull (the port's native library).  For the device cull:
   `draw` and `shutdown` raise it.  A camera matrix that `Frustum` rejects
   (singular, non-finite) still skips the frame, as in the JAX package.
 
-The draw target is the numpy software rasterizer; `run_headless` writes the
-final frame as PNG with the standard library (`write_png`).  The JAX
-package's GL renderer is not ported.
+The draw target is the numpy software rasterizer or, with `use_gl`, the GL
+pipeline (viewer/gl/viewer.py, on this engine and its cull); `run_headless`
+writes the final frame as PNG with the standard library (`write_png`).
 """
 
 from __future__ import annotations
@@ -206,8 +206,9 @@ class PointCloudRenderer:
         self._budget_window_start = time.perf_counter()
         self.point_size_lod = 2  # draw 1/2 of points while moving
         self.show_octree_nodes = False
-        # Display knobs (reference lib.rs:505-508); the software rasterizer
-        # applies them directly.
+        # Interactive display knobs (reference lib.rs:505-508 binds keys
+        # 7/8/9/0 to +-0.1 steps); the GL pipeline consumes them as shader
+        # uniforms, the software rasterizer applies them directly.
         self.gamma = 1.0
         self.point_size = 2.0
         self.device_cull = device_cull
@@ -287,6 +288,22 @@ class PointCloudRenderer:
     def camera_changed(self, world_to_gl: np.ndarray) -> None:
         self._matrix_queue.put(world_to_gl)
 
+    # -- display knobs --------------------------------------------------------
+
+    def adjust_gamma(self, delta: float) -> None:
+        """Key 7/8 binding (reference lib.rs:505-506)."""
+        self.gamma = max(0.1, self.gamma + delta)
+        gl = getattr(self, "gl_renderer", None)
+        if gl is not None:
+            gl.gamma = self.gamma
+
+    def adjust_point_size(self, delta: float) -> None:
+        """Key 9/0 binding (reference lib.rs:507-508)."""
+        self.point_size = max(0.1, self.point_size + delta)
+        gl = getattr(self, "gl_renderer", None)
+        if gl is not None:
+            gl.point_size = self.point_size
+
     # -- adaptive budget -----------------------------------------------------
 
     def adapt_budget(self, moving: bool, now: Optional[float] = None) -> None:
@@ -310,6 +327,11 @@ class PointCloudRenderer:
                 )
         self._budget_frames = 0
         self._budget_window_start = now
+
+    def resize(self, width: int, height: int) -> None:
+        """Window size changed (reference lib.rs:581-586 -> set_size)."""
+        self.width = width
+        self.height = height
 
     # -- drawing ------------------------------------------------------------
 
@@ -416,17 +438,25 @@ def run_headless(
     optionally save the final frame.  Returns the last frame's stats.
 
     `device`: where the device cull runs (with `device_cull`, the default).
-    use_gl is not yet ported and raises."""
-    if use_gl:
-        raise NotImplementedError("use_gl: the GL renderer is not yet ported")
+    use_gl=True renders through the real OpenGL pipeline (surfaceless EGL,
+    shader-side decode -- viewer/gl/) instead of the software rasterizer;
+    without a GL driver it raises."""
     octree = Octree.from_directory(octree_directory)
     camera = Camera(width, height)
     center = octree.bounding_box.center()
     diag = float(np.linalg.norm(octree.bounding_box.diag()))
-    renderer = PointCloudRenderer(
-        octree, width=width, height=height, device_cull=device_cull,
-        cache_size_mb=cache_size_mb, device=device,
-    )
+    if use_gl:
+        from .gl.viewer import GlPointCloudRenderer
+
+        renderer = GlPointCloudRenderer(
+            octree, width=width, height=height, device_cull=device_cull,
+            cache_size_mb=cache_size_mb, device=device,
+        )
+    else:
+        renderer = PointCloudRenderer(
+            octree, width=width, height=height, device_cull=device_cull,
+            cache_size_mb=cache_size_mb, device=device,
+        )
     renderer.show_octree_nodes = show_octree_nodes
     try:
         stats = FrameStats()

@@ -445,6 +445,93 @@ def test_cull_session_on_card_matches_cpu(cuda):
     assert card.a_cap == cpu.a_cap > 8
 
 
+# --- K5 on the viewers' paths ------------------------------------------------
+
+
+@pytest.fixture
+def viewer_tree(tmp_path):
+    rng = np.random.default_rng(14)
+    n = 60_000
+    out = str(tmp_path / "tree")
+    build_octree(out, 0.01, PointsBatch(
+        position=rng.random((n, 3)) * np.array([30.0, 30.0, 10.0]),
+        attributes={"color": rng.integers(0, 256, (n, 3), dtype=np.uint8)}),
+        device="cpu")
+    return out
+
+
+def test_windowed_shell_over_stub_launches_k5_on_card(cuda, viewer_tree):
+    """run_windowed through SdlBackend over the port's libSDL2 stub, its
+    cull on the card (the default): keys w, left, CTRL+SHIFT+1 (save pose
+    slot 0) and CTRL+1 (load it), a present a frame, pixels uploaded, the
+    pose saved, K5 launched."""
+    import os
+    import ctypes
+
+    from point_cloud_viewer_tpu_torch import native
+    from point_cloud_viewer_tpu_torch.viewer.sdl_shell import (
+        SdlBackend, run_windowed)
+
+    path = native.sdl2_stub_path()
+    stub = ctypes.CDLL(path)
+    stub.pcv_stub_get.argtypes = [ctypes.c_char_p]
+    stub.pcv_stub_pixel_sum.restype = ctypes.c_uint64
+    stub.pcv_stub_reset()
+    for scancode, mod in ((26, 0), (80, 0), (30, 0x0041), (30, 0x0040)):
+        stub.pcv_stub_push_keydown(scancode, mod)
+        stub.pcv_stub_push_frame_end()
+    before = CC.cull_lod.launches
+    run_windowed(viewer_tree, backend=SdlBackend(160, 120, lib_path=path),
+                 width=160, height=120, cache_size_mb=10, max_frames=6)
+    assert stub.pcv_stub_get(b"render_present") == 6
+    assert stub.pcv_stub_pixel_sum() > 0
+    assert os.path.exists(os.path.join(viewer_tree, "poses.json"))
+    assert CC.cull_lod.launches > before
+
+
+def test_gl_viewer_culls_on_card(cuda, viewer_tree):
+    """GlPointCloudRenderer with its cull on the card (the default) draws
+    the visible set the CPU route selects, and launches K5."""
+    import time
+
+    from point_cloud_viewer_tpu_torch.octree.octree import Octree
+    from point_cloud_viewer_tpu_torch.viewer import gl
+    from point_cloud_viewer_tpu_torch.viewer.camera import Camera
+
+    if not gl.available():
+        pytest.skip("no EGL/GL driver on this machine")
+    from point_cloud_viewer_tpu_torch.viewer.gl.viewer import (
+        GlPointCloudRenderer)
+
+    octree = Octree.from_directory(viewer_tree)
+    camera = Camera(320, 240)
+    camera.position = octree.bounding_box.center() + np.array(
+        [20.0, -30.0, 15.0])
+    camera.theta, camera.phi = 0.6, np.pi / 3
+    matrix = camera.world_to_gl()
+    before = CC.cull_lod.launches
+    drawn = []
+    for device in (cuda, "cpu"):
+        r = GlPointCloudRenderer(octree, width=320, height=240, device=device)
+        try:
+            r.camera_changed(matrix)
+            deadline = time.perf_counter() + 60
+            while True:
+                stats, image = r.draw(matrix, render=True)
+                if stats.visible_nodes and (
+                        stats.nodes_drawn == stats.visible_nodes):
+                    break
+                assert time.perf_counter() < deadline
+                time.sleep(0.02)
+            with r._visible_lock:
+                drawn.append([n.value for n in r._visible])
+        finally:
+            r.shutdown()
+    assert drawn[0] == drawn[1]
+    assert CC.cull_lod.launches > before
+    assert np.any(image != image[0, 0], axis=-1).sum() > 500
+
+
 # --- K6 and the sync-free derivation ---------------------------------------
 
 

@@ -6,7 +6,12 @@ decoded fields equal, PLY batches equal, the octree's fields and visible
 sets equal on a tree built by both packages, and the camera's matrices
 equal; the x-ray copies marked unchanged are their originals' text, and
 their wire format, quadtree algebra, colormaps, tile selection, extension
-hooks and progress bar behave alike.  One parametrised test per module."""
+hooks and progress bar behave alike; the viewers' and web servers' copies
+(camera, input, terrain, the GL modules, the servers) are their
+originals' text, the shaders, both web clients and the SDL stub their
+bytes, and the copies that differ (the GL viewer, the SDL shell, the web
+viewer CLI) differ only where named.  One parametrised
+test per module."""
 
 import numpy as np
 import pytest
@@ -948,3 +953,91 @@ def _xray_case_extension_and_progress(P, J, rng):
 def test_xray_host_copies_match_jax(case):
     P, J = _xray_packages()
     globals()[f"_xray_case_{case}"](P, J, np.random.default_rng(RNG_SEED))
+
+
+# --- the viewers' and web servers' host modules ----------------------------------
+
+_VIEWER_COPIES = ("viewer/camera.py", "viewer/input.py", "viewer/terrain.py",
+                  "viewer/gl/api.py", "viewer/gl/core.py",
+                  "viewer/gl/renderer.py",
+                  "viewer/gl/terrain.py", "viewer/gl/shaders/__init__.py",
+                  "viewer/web_backend.py", "xray/backend.py",
+                  "cli/xray_web_viewer.py")
+
+# Copied byte for byte: the GLSL sources, both web clients, the SDL stub.
+_VERBATIM = tuple(f"viewer/gl/shaders/{name}" for name in (
+    "points.fs", "points.vs", "points_f64.vs", "solid.fs", "solid.vs",
+    "terrain.fs", "terrain.gs", "terrain.vs")) + (
+    "viewer/client.html", "xray/client.html", "native/sdl2_stub.cpp")
+
+
+def _texts(path):
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = []
+    for pkg in ("point_cloud_viewer_tpu", "point_cloud_viewer_tpu_torch"):
+        with open(os.path.join(root, pkg, path), "rb") as f:
+            out.append(f.read().decode())
+    return out
+
+
+@pytest.mark.parametrize("path", _VIEWER_COPIES)
+def test_viewer_copies_are_their_originals(path):
+    original, copy = _texts(path)
+    n = original.count("\n")
+    note = f"\n\nCopy of point_cloud_viewer_tpu/{path}:1-{n}, unchanged.\n"
+    assert copy.count(note) == 1
+    assert original in (copy.replace(note, "\n"), copy.replace(note, ""))
+
+
+@pytest.mark.parametrize("path", _VERBATIM)
+def test_verbatim_files_are_byte_equal(path):
+    original, copy = _texts(path)
+    assert copy == original and len(copy) > 0
+
+
+def _without_note(path, copy):
+    """The copy with its docstring paragraph naming the source taken out."""
+    start = copy.index(f"\n\nCopy of point_cloud_viewer_tpu/{path}:1-")
+    end = copy.index('"""', start)
+    return copy[:start] + "\n" + copy[end:]
+
+
+# Each copy that differs, as (its text, the original's text) pairs: the copy
+# with its note out and these reversed is the original.
+_CHANGED_COPIES = {
+    "viewer/gl/viewer.py": [
+        ("                 device_cull: bool = True, device=\"cuda\") -> None:",
+         "                 device_cull: bool = False) -> None:"),
+        ("                         device_cull=device_cull, device=device)",
+         "                         device_cull=device_cull)"),
+        ("        self._raise_cull_error()\n        self.node_views.consume",
+         "        self.node_views.consume")],
+    "viewer/sdl_shell.py": [
+        ("    device_cull: bool = True,\n    max_frames: Optional[int] = None,"
+         "\n    device=\"cuda\",\n",
+         "    device_cull: bool = False,\n"
+         "    max_frames: Optional[int] = None,\n"),
+        ("runs until Quit/Escape.\n    `device`: where the per-frame cull "
+         "runs (with `device_cull`).\"\"\"",
+         "runs until Quit/Escape.\"\"\""),
+        ("            device_cull=device_cull, device=device,\n",
+         "            device_cull=device_cull,\n")],
+    "cli/points_web_viewer.py": [
+        ("python -m point_cloud_viewer_tpu_torch.cli.points_web_viewer",
+         "python -m point_cloud_viewer_tpu.cli.points_web_viewer")],
+}
+
+
+@pytest.mark.parametrize("path", sorted(_CHANGED_COPIES))
+def test_changed_copies_differ_only_where_named(path):
+    """The GL viewer and the SDL shell: only the port's cull defaults,
+    `device` and the cull-error check; the web viewer CLI: only the module
+    path in its usage line."""
+    original, copy = _texts(path)
+    text = _without_note(path, copy)
+    for mine, theirs in _CHANGED_COPIES[path]:
+        assert mine in text, mine
+        text = text.replace(mine, theirs)
+    assert text == original

@@ -1,7 +1,8 @@
 """The PyTorch port imports without jax (the GPU machine has none) and
-without the JAX package, builds, views, queries and runs the x-ray CLIs
-with both refused, asks for CUDA only explicitly, and never counts a kernel
-launch on the CPU."""
+without the JAX package, builds, views (headless, through GL and through
+the windowed shell), queries, serves and runs the x-ray CLIs with both
+refused, asks for CUDA only explicitly, and never counts a kernel launch on
+the CPU."""
 
 import os
 import subprocess
@@ -85,6 +86,21 @@ _PORT_MODULES = [
     "point_cloud_viewer_tpu_torch.parallel.mesh",
     "point_cloud_viewer_tpu_torch.parallel.sharded_build",
     "point_cloud_viewer_tpu_torch.entry",
+    "point_cloud_viewer_tpu_torch.viewer.camera",
+    "point_cloud_viewer_tpu_torch.viewer.input",
+    "point_cloud_viewer_tpu_torch.viewer.terrain",
+    "point_cloud_viewer_tpu_torch.viewer.sdl_shell",
+    "point_cloud_viewer_tpu_torch.viewer.web_backend",
+    "point_cloud_viewer_tpu_torch.viewer.gl",
+    "point_cloud_viewer_tpu_torch.viewer.gl.api",
+    "point_cloud_viewer_tpu_torch.viewer.gl.core",
+    "point_cloud_viewer_tpu_torch.viewer.gl.renderer",
+    "point_cloud_viewer_tpu_torch.viewer.gl.viewer",
+    "point_cloud_viewer_tpu_torch.viewer.gl.terrain",
+    "point_cloud_viewer_tpu_torch.viewer.gl.shaders",
+    "point_cloud_viewer_tpu_torch.xray.backend",
+    "point_cloud_viewer_tpu_torch.cli.points_web_viewer",
+    "point_cloud_viewer_tpu_torch.cli.xray_web_viewer",
 ]
 
 
@@ -500,3 +516,74 @@ def test_xray_clis_stand_alone(tmp_path):
         print("xray tiles", tiles)
     """)
     assert "xray tiles" in out
+
+
+def test_viewers_and_servers_stand_alone(tmp_path):
+    """With jax and the JAX package refused: run_headless(use_gl=True)
+    where a GL driver exists, run_windowed through SdlBackend over the
+    port's libSDL2 stub (its cull on device="cpu"), and both web servers
+    answering on port 0 -- every lazy import inside them runs here."""
+    out = _run_refused(f"""
+        import json, os, threading, urllib.request
+
+        import numpy as np
+        from point_cloud_viewer_tpu_torch import native
+        from point_cloud_viewer_tpu_torch.core.points_batch import PointsBatch
+        from point_cloud_viewer_tpu_torch.octree.builder import build_octree
+        from point_cloud_viewer_tpu_torch.query.client import PointCloudClient
+        from point_cloud_viewer_tpu_torch.viewer import gl, web_backend
+        from point_cloud_viewer_tpu_torch.viewer.render_loop import (
+            run_headless)
+        from point_cloud_viewer_tpu_torch.viewer.sdl_shell import (
+            SdlBackend, run_windowed)
+        from point_cloud_viewer_tpu_torch.xray import backend
+        from point_cloud_viewer_tpu_torch.xray.build import (
+            XrayParameters, build_xray_quadtree)
+
+        rng = np.random.default_rng(4)
+        n = 20_000
+        tmp = {str(tmp_path)!r}
+        tree = os.path.join(tmp, "tree")
+        build_octree(tree, 0.001, PointsBatch(
+            position=rng.random((n, 3)) * [8.0, 8.0, 2.0], attributes={{
+                "color": rng.integers(0, 256, (n, 3), dtype=np.uint8)}}),
+            device="cpu")
+        said = []
+        if gl.available():
+            shot = os.path.join(tmp, "gl.png")
+            run_headless(tree, num_frames=3, width=64, height=48,
+                         screenshot_path=shot, use_gl=True, device="cpu")
+            said.append("gl %d" % os.path.getsize(shot))
+        stats = run_windowed(tree, backend=SdlBackend(
+            64, 48, lib_path=native.sdl2_stub_path()), width=64, height=48,
+            cache_size_mb=10, max_frames=3, device="cpu")
+        said.append("window %d" % stats.visible_nodes)
+        xdir = os.path.join(tmp, "xray")
+        build_xray_quadtree("xray", XrayParameters(
+            xdir, PointCloudClient.from_locations([tree], device="cpu"),
+            tile_size_px=64, pixel_size_m=0.05),
+            strategy_kwargs={{"device": "cpu"}}, num_threads=1)
+        servers = [web_backend.make_server(web_backend.AppState(
+            prefix=tmp, init_octree_id="tree"), port=0),
+            backend.make_server(xdir, port=0)]
+        for s in servers:
+            threading.Thread(target=s.serve_forever, daemon=True).start()
+        web, xray = ("http://127.0.0.1:%d" % s.server_address[1]
+                     for s in servers)
+        ident = ",".join(str(float(v)) for v in np.eye(4).T.reshape(-1) * 0.1)
+        names = json.loads(urllib.request.urlopen(
+            web + "/visible_nodes/tree/?matrix=" + ident).read())
+        blob = urllib.request.urlopen(urllib.request.Request(
+            web + "/nodes_data/tree/", data=json.dumps(names).encode())).read()
+        meta = json.loads(urllib.request.urlopen(xray + "/meta").read())
+        png = urllib.request.urlopen(xray + "/node_image/r").read()
+        for s in servers:
+            s.shutdown()
+            s.server_close()
+        assert names and blob and meta["tile_size"] == 64
+        assert png[:8] == b"\\x89PNG\\r\\n\\x1a\\n"
+        said.append("served %d nodes" % len(names))
+        assert_nothing_refused_loaded()
+        print(*said)
+    """)
+    assert "window" in out and "served" in out

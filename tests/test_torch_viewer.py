@@ -139,7 +139,7 @@ def test_renderer_asks_for_cuda_explicitly(octree_dir, monkeypatch):
         PointCloudRenderer(octree, device_cull=True)  # device="cuda"
 
 
-def test_run_headless_device_cull_on_cpu(octree_dir, tmp_path):
+def test_run_headless_device_cull_on_cpu(octree_dir, tmp_path, monkeypatch):
     shot = str(tmp_path / "frame.png")
     stats = run_headless(octree_dir, num_frames=8, width=320, height=240,
                          screenshot_path=shot, device_cull=True,
@@ -148,8 +148,13 @@ def test_run_headless_device_cull_on_cpu(octree_dir, tmp_path):
     img = np.asarray(Image.open(shot))
     assert img.shape == (240, 320, 4)
     assert (img != BACKGROUND).any(axis=2).sum() > 1000
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        run_headless(octree_dir, num_frames=1, use_gl=True)
+    # The GL path culls on the card by default too: without a card (or
+    # without a GL driver) it raises rather than culling on the host.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises((RuntimeError, OSError)):
+        run_headless(octree_dir, num_frames=1, use_gl=True,
+                     screenshot_path=str(tmp_path / "never.png"))
+    assert not os.path.exists(tmp_path / "never.png")
 
 
 def test_cli_view_device_cull_cpu(octree_dir, tmp_path, capsys):
@@ -166,10 +171,19 @@ def test_cli_view_device_cull_cpu(octree_dir, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", ["--gl", "--window"])
-def test_cli_view_unported_flags_exit_2(octree_dir, tmp_path, flag, capsys):
+def test_cli_view_unported_flags_exit_2(octree_dir, tmp_path, flag, capsys,
+                                        monkeypatch):
+    """--gl and --window are ported; without their library (no GL driver,
+    no libSDL2) each exits 2 with a clear error and draws nothing."""
+    from point_cloud_viewer_tpu_torch.viewer import gl, input as shell_input
+
+    monkeypatch.setattr(gl, "available", lambda: False)
+    monkeypatch.setattr(shell_input, "sdl_available", lambda: False)
     shot = str(tmp_path / "never.png")
     assert view_main([octree_dir, flag, "--screenshot", shot]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+    said = capsys.readouterr().err
+    assert ("--gl needs an EGL/OpenGL driver" if flag == "--gl"
+            else "--window needs libSDL2") in said
     assert not os.path.exists(shot)
 
 
