@@ -4,6 +4,9 @@ one NVIDIA GPU.  Run from the repository root:
 
     python3 chip_smoke.py
 
+(`python3 chip_smoke.py --tools` runs phases 2, 5 and 14 alone, with
+their checks and log lines, and prints no result line.)
+
 Phases (any failure raises and the exit code is non-zero):
   1. device  -- require CUDA; print the card's name and power limit; a
                 meta-path finder refuses every import of jax and of the JAX
@@ -175,6 +178,31 @@ Phases (any failure raises and the exit code is non-zero):
                 d. the x-ray server over phase 11's quadtree: /meta as its
                 meta.pb, 16 tiles byte-equal to their files, 404 for an
                 unknown node and path;
+  14. tools (run after 13) -- a. phase 10's cloud regenerated and written
+                as a PLY, then cli.build_s2 at level 14 (the default 20
+                would give ~15M files over the 20 km site): the meta's cell
+                counts sum to 16,000,000 and 16 cells read back their PLY
+                rows bit for bit (f64 positions, unquantised); b. phase
+                10's seven queries over the S2 cloud through
+                PointCloudClient on the card and with device_filter=False,
+                sorted positions byte-equal, the AABB's count equal to
+                numpy's Aabb.contains; cli.query_points with the AABB and
+                the cell union on the card and with --no-device_filter,
+                equal counts; c. cli.export_ply of the AABB on the card and
+                with --no-device_filter, sorted rows byte-equal, as many as
+                b.'s, and --append doubling the vertex count; no kernel
+                launched in a-c; d. on phase 5's octree: cli.upgrade_octree
+                turns its meta.pb re-encoded at version 12 back into the
+                version-13 bytes, node_ids_bfs yields all 1529 nodes,
+                default_factory's HttpDataProvider over a local HTTP server
+                (port 0) serves meta.pb and an Octree over it answers a
+                5 m AABB through the card's filter with the on-disk
+                octree's points; e. the three campaign twins
+                (tools/fuzz_differential, fuzz_crash_resume, fuzz_xray) in
+                process on the card with fixed seeds and iteration counts,
+                each ending with "no failures", K4 and K6 launched over
+                each differential run and over the crash-resume run's
+                device bucket route, the crash hooks restored;
   8. probe + bounds -- K7 (copy, triad, add3) against its plain version
                 at 128,000,000 and ragged n, bit for bit; the streaming-
                 bandwidth probes (hbm_probes: add_1d, add_2d, copy, triad,
@@ -263,6 +291,16 @@ WINDOW_FRAMES = 12                   # phase 13b: frames of the stub shell
 WINDOW_HZ = 60                       # phase 13b: the stub's vsync
 WEB_BATCH = 50                       # phase 13c: the web client's batch
 XRAY_SERVED_TILES = 16               # phase 13d
+S2_SPLIT_LEVEL = 14                  # phase 14a: cells (default 20; files)
+S2_SAMPLE_CELLS = 16                 # phase 14a: cells read back
+HTTP_BOX = 5.0                       # phase 14d: AABB edge (m) over HTTP
+CAMPAIGNS = (                        # phase 14e: twin, FUZZ_SEED, iterations
+    ("fuzz_differential", 1, 8),
+    ("fuzz_differential", 5, 6),     # three 60,000-point clouds
+    ("fuzz_crash_resume", 10, 3),    # the third on the device bucket route
+    ("fuzz_xray", 4, 8),
+)
+CAMPAIGN_SECONDS = 600               # phase 14e: each twin's deadline
 # f32 rate outside the tensor cores, NVIDIA H100 SXM data sheet (an FMA
 # counts two operations), at the 700 W power limit.
 FP32_PEAK_OPS = 67e12
@@ -3173,6 +3211,367 @@ def phase_viewers(octree_dir: str, xray_dir: str, tmp: str) -> dict:
     return {"gl": gl["launches"], "window": window}
 
 
+# --- phase 14: the tools -------------------------------------------------
+
+
+def ply_rows(path: str) -> np.ndarray:
+    """The body of a PLY that write_ply_points wrote, as its structured
+    rows (a read-only memory map)."""
+    from point_cloud_viewer_tpu_torch.io.ply import parse_header
+
+    with open(path, "rb") as f:
+        header = parse_header(f)
+    return np.memmap(path, mode="r", offset=header.header_len, dtype=[
+        ("x", "<f8"), ("y", "<f8"), ("z", "<f8"), ("red", "u1"),
+        ("green", "u1"), ("blue", "u1"), ("intensity", "<f4")],
+        shape=(header.num_vertices,))
+
+
+def run_main(main, args: list) -> str:
+    """A CLI's main(args), its standard output captured; raises unless it
+    returns 0."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(args)
+    if rc != 0:
+        raise AssertionError(f"{main.__module__} {args} returned {rc}: "
+                             f"{buf.getvalue()}")
+    return buf.getvalue()
+
+
+def sorted_ply(path: str) -> tuple:
+    """(rows, bytes of the rows sorted by position) of an exported PLY."""
+    from point_cloud_viewer_tpu_torch.io.ply import PlyReader
+
+    batch = PlyReader(path).read_all()
+    order = np.lexsort(batch.position.T)
+    parts = [batch.position[order].tobytes()] + [
+        batch.attributes[k][order].tobytes() for k in sorted(batch.attributes)]
+    return len(batch), b"".join(parts)
+
+
+def phase_s2(wrappers: dict, tmp: str) -> dict:
+    """14a-c: phase 10's cloud as an S2 cloud.  a. query_cloud regenerated
+    and written as a PLY, then cli.build_s2 at level S2_SPLIT_LEVEL; the
+    meta's cell counts sum to QUERY_POINTS and S2_SAMPLE_CELLS cells read
+    back their PLY rows bit for bit (positions f64, unquantised).  b.
+    query_set through PointCloudClient on the card and with
+    device_filter=False, sorted positions byte-equal, the AABB's count equal
+    to numpy's Aabb.contains; cli.query_points with the AABB and the cell
+    union on the card and with --no-device_filter, equal counts.  c.
+    cli.export_ply of the AABB on the card and with --no-device_filter,
+    sorted rows byte-equal and as many as b.'s AABB; --append doubles the
+    vertex count.  No kernel of K1-K7 launches.  Returns the AABB's box
+    flag and count; removes its files."""
+    from point_cloud_viewer_tpu_torch.cli.build_s2 import main as build_s2
+    from point_cloud_viewer_tpu_torch.cli.export_ply import main as export
+    from point_cloud_viewer_tpu_torch.io.ply import PlyReader
+    from point_cloud_viewer_tpu_torch.math import s2
+    from point_cloud_viewer_tpu_torch.protos.meta import MetaProto
+    from point_cloud_viewer_tpu_torch.query.client import PointCloudClient
+    from point_cloud_viewer_tpu_torch.query.point_query import PointQuery
+
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    ecef = query_cloud(QUERY_POINTS, seed=10)
+    ply = os.path.join(tmp, "site_s2.ply")
+    write_ply_points(ply, ecef, np.random.default_rng(11))
+    gen_s = time.perf_counter() - t0
+    s2dir = os.path.join(tmp, "site_s2")
+    t0 = time.perf_counter()
+    said = run_main(build_s2, [ply, "--output_directory", s2dir,
+                               "--split_level", str(S2_SPLIT_LEVEL)])
+    build_s = time.perf_counter() - t0
+    with open(os.path.join(s2dir, "meta.pb"), "rb") as f:
+        meta = MetaProto.decode(f.read())
+    counts = {c.id: c.num_points for c in meta.s2.cells}
+    if sum(counts.values()) != QUERY_POINTS:
+        raise AssertionError(f"s2: the meta's cells hold "
+                             f"{sum(counts.values())} points, not "
+                             f"{QUERY_POINTS}")
+    files = len(os.listdir(s2dir))
+    t0 = time.perf_counter()
+    cells = s2.parent(s2.leaf_cell_ids_from_points(ecef), S2_SPLIT_LEVEL)
+    rows = ply_rows(ply)
+    ids = sorted(counts)
+    sample = [ids[i] for i in np.linspace(0, len(ids) - 1, S2_SAMPLE_CELLS,
+                                          dtype=int)]
+    for cid in sample:
+        want = rows[cells == np.uint64(cid)]
+        stem = os.path.join(s2dir, s2.token(cid))
+        for ext, data in (("xyz", np.stack([want["x"], want["y"], want["z"]],
+                                           axis=1)),
+                          ("rgb", np.stack([want["red"], want["green"],
+                                            want["blue"]], axis=1)),
+                          ("intensity", want["intensity"])):
+            with open(f"{stem}.{ext}", "rb") as f:
+                got = f.read()
+            if got != np.ascontiguousarray(data).tobytes():
+                raise AssertionError(f"s2: cell {s2.token(cid)}.{ext} does "
+                                     f"not hold its {len(want)} PLY rows")
+    check_s = time.perf_counter() - t0
+    del rows, cells
+    os.remove(ply)
+    log(f"s2: {QUERY_POINTS} points (phase 10's cloud, made and written in "
+        f"{gen_s:.3f} s); cli.build_s2 at level {S2_SPLIT_LEVEL} "
+        f"{build_s:.3f} s, {len(counts)} cells, {files} files, cell counts "
+        f"sum to {QUERY_POINTS}; {len(sample)} cells read back their PLY "
+        f"rows bit for bit ({check_s:.3f} s); cli said: {said.strip()}")
+
+    queries = query_set(ecef)
+    aabb = queries[0][2]
+    aabb_count = int(aabb.contains(ecef).sum())
+    del ecef
+    attrs = ["--attributes", "color", "intensity"]
+    out = {}
+    for name, flags, location, intervals in queries:
+        line = [f"s2 query {name}:"]
+        if name in ("aabb", "cell_union"):
+            card_n, card_s = run_query_cli([s2dir, *flags, *attrs])
+            host_n, host_s = run_query_cli([s2dir, *flags, *attrs,
+                                            "--no-device_filter"])
+            if card_n != host_n:
+                raise AssertionError(f"s2 query {name}: the CLI streamed "
+                                     f"{card_n} points on the card, "
+                                     f"{host_n} on the host")
+            line.append(f"cli {card_n} points, card {card_s:.3f} s, host "
+                        f"{host_s:.3f} s;")
+        query = PointQuery(attributes=["color", "intensity"],
+                           location=location, filter_intervals=intervals)
+        card = PointCloudClient.from_locations([s2dir])
+        got, card_s = stream_sorted(card, query)
+        want, host_s = stream_sorted(PointCloudClient.from_locations(
+            [s2dir], device_filter=False), query)
+        if got.shape != want.shape or got.tobytes() != want.tobytes():
+            raise AssertionError(f"s2 query {name}: the card's stream "
+                                 f"differs from the host's ({len(got)} vs "
+                                 f"{len(want)} points)")
+        if not 0 < len(got) < QUERY_POINTS:
+            raise AssertionError(f"s2 query {name}: {len(got)} points")
+        if name == "aabb" and len(got) != aabb_count:
+            raise AssertionError(f"s2 query aabb: {len(got)} points, numpy's "
+                                 f"Aabb.contains {aabb_count}")
+        if name == "aabb" and card_n != aabb_count:
+            raise AssertionError(f"s2 query aabb: the CLI streamed {card_n} "
+                                 f"points, numpy's Aabb.contains {aabb_count}")
+        stats = card.filter_stats
+        line.append(f"stream {len(got)} points == host, byte-equal; card "
+                    f"{card_s:.3f} s, host {host_s:.3f} s; filtered on the "
+                    f"card {stats.rows} rows, band {stats.uncertain}, host "
+                    f"recomputed {stats.refined}")
+        log(" ".join(line))
+        out[name] = len(got)
+
+    box = queries[0][1][1]
+    paths = {}
+    for route, extra in (("card", []), ("host", ["--no-device_filter"])):
+        paths[route] = os.path.join(tmp, f"export_{route}.ply")
+        t0 = time.perf_counter()
+        run_main(export, [s2dir, "--output", paths[route], "--aabb", box,
+                          *attrs, *extra])
+        out[f"export {route} s"] = time.perf_counter() - t0
+    (n_card, card_rows), (n_host, host_rows) = (sorted_ply(paths[r])
+                                                for r in ("card", "host"))
+    if card_rows != host_rows or n_card != aabb_count:
+        raise AssertionError(f"s2 export: {n_card} rows on the card, "
+                             f"{n_host} on the host, {aabb_count} in the "
+                             f"AABB; sorted rows equal: "
+                             f"{card_rows == host_rows}")
+    run_main(export, [s2dir, "--output", paths["card"], "--aabb", box,
+                      *attrs, "--append"])
+    appended = PlyReader(paths["card"]).num_points
+    if appended != 2 * n_card:
+        raise AssertionError(f"s2 export --append: {appended} vertices, not "
+                             f"{2 * n_card}")
+    log(f"s2 export: cli.export_ply of the AABB on the card "
+        f"{out['export card s']:.3f} s, --no-device_filter "
+        f"{out['export host s']:.3f} s; {n_card} rows each, sorted rows "
+        f"byte-equal; --append -> {appended} vertices")
+    launches = {k: w.launches for k, w in wrappers.items()}
+    if any(launches.values()):
+        raise AssertionError(f"s2: kernels launched on the S2 path "
+                             f"{launches}")
+    shutil.rmtree(s2dir)
+    for p in paths.values():
+        os.remove(p)
+    return out
+
+
+def meta_v12(raw: bytes) -> bytes:
+    """A version-13 octree meta.pb re-encoded at version 12: the bounding
+    box inside OctreeMeta (field 1), as protos/meta.py decodes it."""
+    from point_cloud_viewer_tpu_torch.protos import pbwire as pb
+    from point_cloud_viewer_tpu_torch.protos.meta import MetaProto
+
+    meta = MetaProto.decode(raw)
+    octree = pb.FieldWriter()
+    octree.message(1, meta.bounding_box.encode())
+    octree.double(2, meta.octree.resolution)
+    for node in meta.octree.nodes:
+        octree.message(3, node.encode())
+    w = pb.FieldWriter()
+    w.varint(1, 12, signed=True)
+    w.message(6, octree.finish())
+    return w.finish()
+
+
+def phase_host_tools(octree_dir: str, tmp: str) -> None:
+    """14d: on phase 5's octree, cli.upgrade_octree on a copy of its meta.pb
+    re-encoded at version 12 gives back the version-13 bytes; node_ids_bfs
+    yields every node; default_factory's HTTP provider over a
+    ThreadingHTTPServer of the directory (port 0) serves meta.pb, and an
+    Octree over it answers a small AABB query through the card's filter
+    with the on-disk octree's points."""
+    import functools
+    from http.server import SimpleHTTPRequestHandler, ThreadingHTTPServer
+
+    from point_cloud_viewer_tpu_torch.cli.upgrade_octree import main as upgrade
+    from point_cloud_viewer_tpu_torch.io.factory import (
+        HttpDataProvider, default_factory)
+    from point_cloud_viewer_tpu_torch.math.geometry import Aabb
+    from point_cloud_viewer_tpu_torch.octree.octree import Octree
+    from point_cloud_viewer_tpu_torch.octree.traversal import node_ids_bfs
+    from point_cloud_viewer_tpu_torch.query.client import PointCloudClient
+    from point_cloud_viewer_tpu_torch.query.point_query import PointQuery
+
+    with open(os.path.join(octree_dir, "meta.pb"), "rb") as f:
+        raw = f.read()
+    old = os.path.join(tmp, "upgrade")
+    os.makedirs(old)
+    with open(os.path.join(old, "meta.pb"), "wb") as f:
+        f.write(meta_v12(raw))
+    said = run_main(upgrade, [old])
+    with open(os.path.join(old, "meta.pb"), "rb") as f:
+        if f.read() != raw:
+            raise AssertionError("upgrade: the v12 meta did not come back "
+                                 "as the v13 bytes")
+    shutil.rmtree(old)
+    octree = Octree.from_directory(octree_dir)
+    t0 = time.perf_counter()
+    bfs = list(node_ids_bfs(octree))
+    bfs_s = time.perf_counter() - t0
+    if len(bfs) != len(octree) or len(set(bfs)) != len(octree):
+        raise AssertionError(f"node_ids_bfs: {len(bfs)} nodes of "
+                             f"{len(octree)}")
+    log(f"tools: cli.upgrade_octree v12 -> v13 byte-equal ({said.strip()}); "
+        f"node_ids_bfs {len(bfs)} nodes of {len(octree)} in {bfs_s:.3f} s")
+
+    class Quiet(SimpleHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), functools.partial(
+        Quiet, directory=octree_dir))
+    box = octree.bounding_box
+    mid = (box.mins + box.maxs) / 2.0
+    query = PointQuery(attributes=["color", "intensity"],
+                       location=Aabb(mid - HTTP_BOX / 2, mid + HTTP_BOX / 2))
+    with serving(server) as url:
+        provider = default_factory().generate_data_provider(url + "/")
+        if not isinstance(provider, HttpDataProvider):
+            raise AssertionError(f"factory gave {type(provider).__name__}")
+        if provider.meta_bytes() != raw:
+            raise AssertionError("http provider: meta.pb differs")
+        t0 = time.perf_counter()
+        got, _ = stream_sorted(PointCloudClient([Octree(provider)]), query)
+        http_s = time.perf_counter() - t0
+    want, disk_s = stream_sorted(PointCloudClient.from_locations(
+        [octree_dir]), query)
+    if got.tobytes() != want.tobytes() or not len(got):
+        raise AssertionError(f"http provider: {len(got)} points, on disk "
+                             f"{len(want)}")
+    log(f"tools: default_factory's HttpDataProvider on port "
+        f"{server.server_address[1]} served meta.pb; a {HTTP_BOX:.0f} m AABB "
+        f"through the card's filter gave {len(got)} points over HTTP "
+        f"({http_s:.3f} s) == on disk ({disk_s:.3f} s), byte-equal")
+
+
+def run_campaign(name: str, seed: int, iters: int) -> tuple:
+    """One campaign twin's main in process on DEVICE with FUZZ_SEED and
+    FUZZ_MAX_ITERS set -> (iterations, seconds, its last line)."""
+    module = importlib.import_module(
+        f"point_cloud_viewer_tpu_torch.tools.{name}")
+    saved = {k: os.environ.get(k) for k in ("FUZZ_SEED", "FUZZ_MAX_ITERS")}
+    os.environ.update(FUZZ_SEED=str(seed), FUZZ_MAX_ITERS=str(iters))
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = module.main([str(CAMPAIGN_SECONDS), "--device", DEVICE])
+    except BaseException:
+        log(f"campaign {name}: " + " | ".join(buf.getvalue().splitlines()[-3:]))
+        raise
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    seconds = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    said = re.search(r"finished: (\d+) iterations, no failures$", lines[-1])
+    if rc != 0 or not said or int(said.group(1)) != iters:
+        raise AssertionError(f"campaign {name}: rc {rc}, last line "
+                             f"{lines[-1]!r}")
+    return iters, seconds, lines
+
+
+def phase_campaigns(wrappers: dict) -> dict:
+    """14e: the three campaign twins in process on the card (CAMPAIGNS:
+    seed and iterations), each run ending with its "no failures" line; K1,
+    K4 and K6 counted over each run: each differential run, and the
+    crash-resume run through the device bucket route, must launch K4 and
+    K6.  Returns the counts summed over the differential runs."""
+    from point_cloud_viewer_tpu_torch.tools import fuzz_crash_resume
+
+    counts = {k: 0 for k in BUILD_PATH}
+    for name, seed, iters in CAMPAIGNS:
+        for w in wrappers.values():
+            w.launches = 0
+        iters, seconds, lines = run_campaign(name, seed, iters)
+        launches = {k: wrappers[k].launches for k in BUILD_PATH}
+        extra = ""
+        if name == "fuzz_differential":
+            if not (launches["K4"] and launches["K6"]):
+                raise AssertionError(f"campaign {name}: K4 or K6 never "
+                                     f"launched {launches}")
+            counts = {k: counts[k] + launches[k] for k in BUILD_PATH}
+            extra = f"; launches {json.dumps(launches)}"
+        if name == "fuzz_crash_resume":
+            real = {k: getattr(mod, attr) for k, (mod, attr)
+                    in fuzz_crash_resume.HOOKS.items()}
+            if real != fuzz_crash_resume.REAL:
+                raise AssertionError("campaign fuzz_crash_resume left a hook "
+                                     "patched")
+            device_its = sum("dev=True" in line for line in lines)
+            if not (device_its and launches["K4"] and launches["K6"]):
+                raise AssertionError(f"campaign {name}: the device bucket "
+                                     f"route never ran on the card "
+                                     f"({device_its} iterations, launches "
+                                     f"{launches})")
+            extra = (f"; {device_its} iterations on the device bucket route, "
+                     f"launches {json.dumps(launches)}; hooks restored")
+        log(f"campaign {name}: seed {seed}, {iters} iterations on the card "
+            f"in {seconds:.3f} s, no failures{extra}; last: {lines[-2]}")
+    return counts
+
+
+def phase_tools(wrappers: dict, tmp: str, octree_dir: str) -> dict:
+    """14: the tools -- the S2 cloud (a-c), the host tools (d) and the
+    campaigns on the card (e); returns 14e's launch counts."""
+    t_phase = time.perf_counter()
+    phase_s2(wrappers, tmp)
+    t0 = time.perf_counter()
+    phase_host_tools(octree_dir, tmp)
+    tools_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts = phase_campaigns(wrappers)
+    log(f"tools: 14d {tools_s:.3f} s, 14e {time.perf_counter() - t0:.3f} s; "
+        f"phase 14 took {time.perf_counter() - t_phase:.3f} s")
+    return counts
+
+
 # --- phase 8: K7, the probes, and every kernel's bound -------------------
 
 
@@ -3284,39 +3683,11 @@ def bounds(record: dict, probes: dict, per_call: dict) -> dict:
     return out
 
 
-def main() -> int:
-    if sys.argv[1:] == ["--device-ops"]:
-        return device_ops_main()
-    finder = RefuseJaxPackage()
-    sys.meta_path.insert(0, finder)
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False",
-              file=sys.stderr)
-        return 1
+def build_all() -> None:
+    """Phase 2: nvcc over the port's CUDA sources and, beside it, g++ over
+    its host library; raises if either fails."""
     from point_cloud_viewer_tpu_torch import native
     from point_cloud_viewer_tpu_torch.ops import _ext
-    from point_cloud_viewer_tpu_torch.ops import cull_cuda as CC
-    from point_cloud_viewer_tpu_torch.ops import hbm_probe as K7
-    from point_cloud_viewer_tpu_torch.ops import leaf_levels_cuda as K6
-    from point_cloud_viewer_tpu_torch.ops import level_cuda as LC
-    from point_cloud_viewer_tpu_torch.ops import scan_cuda as SC
-
-    global CARD
-    t_start = time.perf_counter()
-    smi = K7.card_label(torch.device(DEVICE))
-    CARD = smi
-    log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
-        f"torch {torch.__version__} cuda {torch.version.cuda}; imports of "
-        "jax and point_cloud_viewer_tpu refused")
-    found = {}
-    for name in ("scipy", "PIL"):
-        try:
-            found[name] = importlib.import_module(name).__version__
-        except ImportError:
-            found[name] = "does not import"
-    log(f"device: scipy {found['scipy']}; PIL {found['PIL']}")
 
     host = {}
 
@@ -3339,6 +3710,76 @@ def main() -> int:
     for line in info.log.splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             log("  " + line.strip())
+
+
+def tools_main() -> int:
+    """`chip_smoke.py --tools`: phase 2, phase 5 (phase 14d's octree) and
+    phase 14 alone, with their log lines and checks; prints no result
+    line.  PERF.md's phase-14 measurements come from it."""
+    sys.meta_path.insert(0, RefuseJaxPackage())
+    import torch
+
+    from point_cloud_viewer_tpu_torch.ops import hbm_probe as K7
+    from point_cloud_viewer_tpu_torch.ops import leaf_levels_cuda as K6
+    from point_cloud_viewer_tpu_torch.ops import level_cuda as LC
+    from point_cloud_viewer_tpu_torch.ops import scan_cuda as SC
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    global CARD
+    t_start = time.perf_counter()
+    CARD = K7.card_label(torch.device(DEVICE))
+    build_all()
+    build = {"K1": SC.scan_1d, "K2": LC.seg_start_pass,
+             "K3": LC.leaf_update_pass, "K4": LC.promote_stage,
+             "K6": K6.leaf_stage, "K4 pass": LC.promote_pass}
+    tmp = tempfile.mkdtemp(prefix="pcv_chip_smoke_")
+    try:
+        octree_dir = phase_e2e(build, tmp)[1]
+        phase_tools(build, tmp, octree_dir)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"--tools total {time.perf_counter() - t_start:.3f} s")
+    return 0
+
+
+def main() -> int:
+    if sys.argv[1:] == ["--device-ops"]:
+        return device_ops_main()
+    if sys.argv[1:] == ["--tools"]:
+        return tools_main()
+    finder = RefuseJaxPackage()
+    sys.meta_path.insert(0, finder)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    from point_cloud_viewer_tpu_torch.ops import cull_cuda as CC
+    from point_cloud_viewer_tpu_torch.ops import hbm_probe as K7
+    from point_cloud_viewer_tpu_torch.ops import leaf_levels_cuda as K6
+    from point_cloud_viewer_tpu_torch.ops import level_cuda as LC
+    from point_cloud_viewer_tpu_torch.ops import scan_cuda as SC
+
+    global CARD
+    t_start = time.perf_counter()
+    smi = K7.card_label(torch.device(DEVICE))
+    CARD = smi
+    log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
+        f"torch {torch.__version__} cuda {torch.version.cuda}; imports of "
+        "jax and point_cloud_viewer_tpu refused")
+    found = {}
+    for name in ("scipy", "PIL"):
+        try:
+            found[name] = importlib.import_module(name).__version__
+        except ImportError:
+            found[name] = "does not import"
+    log(f"device: scipy {found['scipy']}; PIL {found['PIL']}")
+
+    build_all()
 
     kernels = {
         "K1": ("scan_1d", SC.scan_1d, "point_cloud_viewer_tpu_torch/csrc/scan.cu",
@@ -3390,6 +3831,7 @@ def main() -> int:
         mesh = phase_mesh(build, tmp, ply, octree_dir, incore_phases,
                           deep_dir)
         viewers = phase_viewers(octree_dir, xray_dir, tmp)
+        campaign = phase_tools(build, tmp, octree_dir)
         log(f"launches on the in-core path (phase 5) {json.dumps(incore)}; "
             f"on the streaming path (phase 7c, 16M, {buckets} buckets) "
             f"{json.dumps(streamed)}; on the deep 16M build (phase 9) "
@@ -3398,7 +3840,8 @@ def main() -> int:
             f"(phase 6c, {VIEW_FRAMES} frames) {launches['K5']}, in "
             f"cli.view --gl (phase 13a, {VIEW_FRAMES} frames) "
             f"{viewers['gl']}, in the windowed shell (phase 13b, "
-            f"{WINDOW_FRAMES} frames) {viewers['window']}")
+            f"{WINDOW_FRAMES} frames) {viewers['window']}; over the "
+            f"differential campaign (phase 14e) {json.dumps(campaign)}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches["K7"], probes = phase_probe(record)

@@ -12,7 +12,7 @@ meta.pb contract.
 from __future__ import annotations
 
 import enum
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -43,6 +43,16 @@ class AttributeDataType(enum.IntEnum):
         """Number of scalar components per point (1 or 3)."""
         return 3 if self in (AttributeDataType.U8VEC3, AttributeDataType.F64VEC3) else 1
 
+    @classmethod
+    def from_array(cls, arr: np.ndarray) -> "AttributeDataType":
+        """Infer the data type of an attribute array ((N,) or (N,3))."""
+        vec = arr.ndim == 2 and arr.shape[1] == 3
+        key = (np.dtype(arr.dtype).str.lstrip("<>=|"), vec)
+        try:
+            return _FROM_NP[key]
+        except KeyError:
+            raise ValueError(f"Unsupported attribute array: dtype={arr.dtype} shape={arr.shape}")
+
 
 # Scalar element dtype for each attribute type (little-endian on disk).
 _SCALAR_DTYPE: Dict[AttributeDataType, str] = {
@@ -58,6 +68,21 @@ _SCALAR_DTYPE: Dict[AttributeDataType, str] = {
     AttributeDataType.F64: "f8",
     AttributeDataType.U8VEC3: "u1",
     AttributeDataType.F64VEC3: "f8",
+}
+
+_FROM_NP: Dict[Tuple[str, bool], AttributeDataType] = {
+    ("u1", False): AttributeDataType.U8,
+    ("u2", False): AttributeDataType.U16,
+    ("u4", False): AttributeDataType.U32,
+    ("u8", False): AttributeDataType.U64,
+    ("i1", False): AttributeDataType.I8,
+    ("i2", False): AttributeDataType.I16,
+    ("i4", False): AttributeDataType.I32,
+    ("i8", False): AttributeDataType.I64,
+    ("f4", False): AttributeDataType.F32,
+    ("f8", False): AttributeDataType.F64,
+    ("u1", True): AttributeDataType.U8VEC3,
+    ("f8", True): AttributeDataType.F64VEC3,
 }
 
 

@@ -13,6 +13,8 @@ from typing import Dict, Iterable, List
 
 import numpy as np
 
+from .attributes import AttributeDataType
+
 
 @dataclass
 class PointsBatch:
@@ -44,6 +46,9 @@ class PointsBatch:
     @property
     def attribute_names(self) -> List[str]:
         return list(self.attributes)
+
+    def data_types(self) -> Dict[str, AttributeDataType]:
+        return {k: AttributeDataType.from_array(v) for k, v in self.attributes.items()}
 
     def retain(self, keep: np.ndarray) -> "PointsBatch":
         """Return a batch with only the rows where `keep` is True."""

@@ -1,13 +1,13 @@
-"""Per-node attribute file I/O and the on-disk data provider (copy of
-point_cloud_viewer_tpu/io/node_io.py:27-174, trimmed to what the builders
-and the octree call).
+"""Per-node attribute file I/O and the DataProvider abstraction (copy of
+point_cloud_viewer_tpu/io/node_io.py:27-174, trimmed to what the builders,
+the octree, the S2 cells and the providers of io/factory.py call).
 
 On-disk layout (the reference's contract, src/read_write/raw.rs:361-450 and
 src/data_provider/on_disk.rs:11-69): a point-cloud directory contains
 `meta.pb` plus, per node, one little-endian flat binary file per attribute —
 `<stem>.xyz` for positions (interleaved x,y,z in the node's position
 encoding), `<stem>.rgb` for color (u8 triplets), `<stem>.<attr>` otherwise.
-The stem is the octree node name (`r053`).  Empty files are never left
+The stem is the octree node name (`r053`) or an S2 cell token.  Empty files are never left
 behind (the reference deletes zero-byte files on writer drop,
 src/read_write/node_writer.rs:78-89).
 """
@@ -42,14 +42,26 @@ def attempt_increasing_rlimit_to_max() -> None:
         pass
 
 
+class DataProvider:
+    """Storage abstraction: metadata bytes + per-node attribute blobs
+    (reference trait: src/data_provider/common.rs:6-13)."""
+
+    def meta_proto(self) -> MetaProto:
+        raise NotImplementedError
+
+    def meta_bytes(self):
+        """Raw meta.pb bytes, or None — enables the native fast parser."""
+        return None
+
+    def data(self, node_name: str, attributes: Iterable[str]) -> Dict[str, bytes]:
+        raise NotImplementedError
+
+
 class NodeNotFound(KeyError):
     pass
 
 
-class OnDiskDataProvider:
-    """Metadata bytes + per-node attribute blobs of an octree directory
-    (reference trait: src/data_provider/common.rs:6-13)."""
-
+class OnDiskDataProvider(DataProvider):
     def __init__(self, directory: str) -> None:
         self.directory = directory
         self._prefix = (
@@ -130,7 +142,7 @@ def parse_attribute_bytes(buf: bytes, data_type: AttributeDataType) -> np.ndarra
 
 
 def read_node_batch(
-    provider: OnDiskDataProvider,
+    provider: DataProvider,
     node_name: str,
     attribute_data_types: Dict[str, AttributeDataType],
     encoding: PositionEncoding,

@@ -1,5 +1,6 @@
-"""PLY reading (copy of point_cloud_viewer_tpu/io/ply.py:31-194, the reader
-only; the JAX package's writers stay there).
+"""PLY reading and writing (copy of point_cloud_viewer_tpu/io/ply.py:31-349:
+the reader, the type names and the writers, PlyStreamWriter and write_ply
+at :197-349, unchanged).
 
 The reader parses the header on the host and then consumes the body with one
 `np.frombuffer` per batch over a structured dtype (reference:
@@ -18,6 +19,7 @@ Binary little-endian is the primary format; ASCII is also accepted.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Tuple
 
@@ -37,6 +39,13 @@ _PLY_DTYPES = {
     "ulonglong": "u8", "uint64": "u8",
     "float": "f4", "float32": "f4",
     "double": "f8", "float64": "f8",
+}
+
+# Inverse of _PLY_DTYPES for writing (canonical PLY names).
+_PLY_TYPE_NAMES = {
+    "u1": "uchar", "u2": "ushort", "u4": "uint", "u8": "ulonglong",
+    "i1": "char", "i2": "short", "i4": "int", "i8": "longlong",
+    "f4": "float", "f8": "double",
 }
 
 _COLOR_CHANNELS = {"r": 0, "red": 0, "g": 1, "green": 1, "b": 2, "blue": 2}
@@ -183,3 +192,158 @@ class PlyReader:
 
     def read_all(self) -> PointsBatch:
         return PointsBatch.concatenate(list(self))
+
+
+class PlyStreamWriter:
+    """Incremental PLY writer: batches are appended as they stream and the
+    vertex count (a fixed-width placeholder) is patched on close — the
+    reference's PlyNodeWriter pattern (src/read_write/ply.rs:559-732).
+
+    The attribute schema is fixed by the first batch.  Supports appending
+    to an existing PLY written by this class (vertex counts add up).
+    """
+
+    _COUNT_WIDTH = 20
+
+    def __init__(self, path: str, append: bool = False) -> None:
+        self.path = path
+        self.count = 0
+        self._schema = None  # [(prop name, dtype code)] incl. x/y/z
+        self._count_pos = None
+        if append and os.path.exists(path) and os.path.getsize(path) > 0:
+            self._open_existing()
+        else:
+            self._file = open(path, "wb")
+
+    def _open_existing(self) -> None:
+        with open(self.path, "rb") as f:
+            header = parse_header(f)
+        if header.fmt != "binary_little_endian":
+            raise ValueError(
+                f"can only append to binary_little_endian PLYs, "
+                f"file is {header.fmt}"
+            )
+        self._file = open(self.path, "r+b")
+        self._file.seek(0, 2)  # append at end
+        self.count = header.num_vertices
+        # Locate the fixed-width count in the header for patching.
+        head = open(self.path, "rb").read(header.header_len).decode("ascii")
+        marker = "element vertex "
+        i = head.index(marker) + len(marker)
+        self._count_pos = i
+        # Batches must match the existing header's property layout exactly,
+        # else the body desynchronizes from the declared record format.
+        self._schema = list(header.properties)
+
+    @staticmethod
+    def _batch_props(batch: PointsBatch):
+        """Property list (name, dtype code) a batch's records produce —
+        the layout _write_header declares and write() emits."""
+        props = [("x", "f8"), ("y", "f8"), ("z", "f8")]
+        for name, arr in batch.attributes.items():
+            code = np.dtype(arr.dtype).str.lstrip("<>=|")
+            if arr.ndim == 2:
+                channels = (
+                    ["red", "green", "blue", "alpha"][: arr.shape[1]]
+                    if name == "color"
+                    else [f"{name}{i}" for i in range(arr.shape[1])]
+                )
+                props += [(c, code) for c in channels]
+            else:
+                props.append((name, code))
+        return props
+
+    def write(self, batch: PointsBatch) -> None:
+        props = self._batch_props(batch)
+        if self._schema is None:
+            self._write_header(batch)
+            self._schema = props
+        elif props != self._schema:
+            raise ValueError(
+                f"batch schema {props} does not match the PLY header "
+                f"{self._schema}"
+            )
+        rec = np.rec.fromarrays(
+            [batch.position[:, 0].astype("<f8"),
+             batch.position[:, 1].astype("<f8"),
+             batch.position[:, 2].astype("<f8")]
+            + [
+                col
+                for name, arr in batch.attributes.items()
+                for col in (
+                    [arr[:, i] for i in range(arr.shape[1])]
+                    if arr.ndim == 2
+                    else [arr]
+                )
+            ],
+        )
+        self._file.write(rec.tobytes())
+        self.count += len(batch)
+
+    def _write_header(self, batch: PointsBatch) -> None:
+        lines = ["ply", "format binary_little_endian 1.0"]
+        count_line = "element vertex "
+        lines.append(count_line + "0".zfill(self._COUNT_WIDTH))
+        props = [
+            f"property {_PLY_TYPE_NAMES[code]} {name}"
+            for name, code in self._batch_props(batch)
+        ]
+        header = "\n".join(lines + props + ["end_header"]) + "\n"
+        prefix = "\n".join(lines[:2]) + "\n" + count_line
+        self._count_pos = len(prefix)
+        self._file.write(header.encode("ascii"))
+
+    def close(self) -> None:
+        if self._count_pos is not None:
+            self._file.seek(self._count_pos)
+            self._file.write(str(self.count).zfill(self._COUNT_WIDTH).encode("ascii"))
+        self._file.close()
+
+    def __enter__(self) -> "PlyStreamWriter":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def write_ply(path: str, batch: PointsBatch, offset: Optional[np.ndarray] = None) -> None:
+    """Write a binary little-endian PLY: double x/y/z, then attributes in
+    sorted name order (color expands to red/green/blue; multi-dim attributes
+    get numbered suffixes, matching the reference writer's header —
+    src/read_write/ply.rs:690-725)."""
+    position = batch.position
+    if offset is not None:
+        position = position - offset
+
+    fields: List[Tuple[str, str, np.ndarray]] = [
+        ("x", "double", position[:, 0].astype("<f8")),
+        ("y", "double", position[:, 1].astype("<f8")),
+        ("z", "double", position[:, 2].astype("<f8")),
+    ]
+    for name, arr in batch.attributes.items():
+        dstr = _PLY_TYPE_NAMES[np.dtype(arr.dtype).str.lstrip("<>=|")]
+        if arr.ndim == 2:
+            if name == "color":
+                channel_names = ["red", "green", "blue", "alpha"]
+            else:
+                channel_names = [f"{name}{i}" for i in range(arr.shape[1])]
+            for i in range(arr.shape[1]):
+                fields.append((channel_names[i], dstr, arr[:, i]))
+        else:
+            fields.append((name, dstr, arr))
+
+    header = ["ply", "format binary_little_endian 1.0"]
+    if offset is not None:
+        header.append("comment offset: {} {} {}".format(*offset))
+    header.append(f"element vertex {len(batch)}")
+    header += [f"property {d} {n}" for n, d, _ in fields]
+    header.append("end_header")
+
+    rec = np.rec.fromarrays(
+        [f[2] for f in fields],
+        dtype=np.dtype([(f"f{i}", "<" + np.dtype(f[2].dtype).str.lstrip("<>=|"))
+                        for i, f in enumerate(fields)]),
+    )
+    with open(path, "wb") as f:
+        f.write(("\n".join(header) + "\n").encode("ascii"))
+        f.write(rec.tobytes())

@@ -1,5 +1,6 @@
 """Octree NodeId algebra (copy of point_cloud_viewer_tpu/octree/node_id.py:
-20-199, trimmed to what the builders, the octree and the web server call).
+20-199, trimmed to what the builders, the octree, the web server and
+octree/traversal.py call).
 
 A NodeId packs an 8-bit level and a 120-bit base-8 path into a u128 (held as
 a Python int for scalars, or as (level u8, path u64) array pairs for the
@@ -27,6 +28,10 @@ class NodeId:
     value: int
 
     @classmethod
+    def root(cls) -> "NodeId":
+        return cls(0)
+
+    @classmethod
     def from_level_index(cls, level: int, index: int) -> "NodeId":
         return cls((level << 120) | index)
 
@@ -50,6 +55,10 @@ class NodeId:
         if self.level == 0:
             return "r"
         return "r" + format(self.index, "o").zfill(self.level)
+
+    def child(self, child_index: int) -> "NodeId":
+        assert 0 <= child_index < 8
+        return NodeId.from_level_index(self.level + 1, (self.index << 3) + child_index)
 
     def find_bounding_cube(self, root: Cube) -> Cube:
         """Descend from the root cube along the path; floating-point

@@ -26,7 +26,7 @@ from ..core.attributes import (
     OCTREE_STANDARD_ATTRIBUTES,
 )
 from ..core.points_batch import PointsBatch
-from ..io.node_io import OnDiskDataProvider, read_node_batch
+from ..io.node_io import DataProvider, OnDiskDataProvider, read_node_batch
 from ..math.geometry import Aabb, Cube
 from ..ops.codec import PositionEncoding
 from .node_id import NodeId, bounding_cubes, bounding_cubes2, unpack_ids
@@ -124,7 +124,7 @@ class Octree:
     # per-instance) so Octree.__new__-constructed synthetic trees have it.
     _index_lock = threading.Lock()
 
-    def __init__(self, data_provider: OnDiskDataProvider) -> None:
+    def __init__(self, data_provider: DataProvider) -> None:
         self.data_provider = data_provider
         # Fast path: the native wire walker parses a current-layout meta.pb
         # directly into arrays (~100x the per-node Python decode at ~1M

@@ -5,9 +5,7 @@ Positions are stored 'Plain' (raw little-endian f64 ECEF).  Node selection
 uses each cell's conservative world AABB against the query location — the
 same vectorized PointLocation interface the octree uses.
 
-Copy of point_cloud_viewer_tpu/s2_cells/container.py:1-156; the port's
-io.node_io has no DataProvider base class, so the reader takes its
-OnDiskDataProvider.
+Copy of point_cloud_viewer_tpu/s2_cells/container.py:1-156, unchanged.
 """
 
 from __future__ import annotations
@@ -18,7 +16,7 @@ import numpy as np
 
 from ..core.attributes import AttributeDataType
 from ..core.points_batch import PointsBatch
-from ..io.node_io import OnDiskDataProvider
+from ..io.node_io import DataProvider, OnDiskDataProvider
 from ..math import s2
 from ..math.geometry import Aabb
 from .cell_union import CellUnion, cell_world_bounds
@@ -49,7 +47,7 @@ class S2CellId:
 class S2Cells:
     """An on-disk S2 point cloud opened for querying."""
 
-    def __init__(self, data_provider: OnDiskDataProvider) -> None:
+    def __init__(self, data_provider: DataProvider) -> None:
         self.data_provider = data_provider
         meta = data_provider.meta_proto()
         if meta.s2 is None:

@@ -982,13 +982,17 @@ def _texts(path):
     return out
 
 
-@pytest.mark.parametrize("path", _VIEWER_COPIES)
-def test_viewer_copies_are_their_originals(path):
+def _assert_unchanged_copy(path):
     original, copy = _texts(path)
     n = original.count("\n")
     note = f"\n\nCopy of point_cloud_viewer_tpu/{path}:1-{n}, unchanged.\n"
     assert copy.count(note) == 1
     assert original in (copy.replace(note, "\n"), copy.replace(note, ""))
+
+
+@pytest.mark.parametrize("path", _VIEWER_COPIES)
+def test_viewer_copies_are_their_originals(path):
+    _assert_unchanged_copy(path)
 
 
 @pytest.mark.parametrize("path", _VERBATIM)
@@ -1027,6 +1031,19 @@ _CHANGED_COPIES = {
     "cli/points_web_viewer.py": [
         ("python -m point_cloud_viewer_tpu_torch.cli.points_web_viewer",
          "python -m point_cloud_viewer_tpu.cli.points_web_viewer")],
+    "cli/export_ply.py": [
+        ('patched on close).\n"""', 'patched on close)."""'),
+        ("    client = PointCloudClient.from_locations(\n        "
+         "args.locations, device_filter=args.device_filter, "
+         "device=args.device\n    )\n",
+         "    client = PointCloudClient.from_locations(args.locations)\n")],
+}
+
+# Blocks a changed copy adds, between these marker lines (both taken out
+# with the block before the pairs above are reversed).
+_ADDED_BLOCKS = {
+    "cli/export_ply.py": ("    # Route flags of cli/query_points.py",
+                          "    # End of the route flags.\n"),
 }
 
 
@@ -1034,10 +1051,55 @@ _CHANGED_COPIES = {
 def test_changed_copies_differ_only_where_named(path):
     """The GL viewer and the SDL shell: only the port's cull defaults,
     `device` and the cull-error check; the web viewer CLI: only the module
-    path in its usage line."""
+    path in its usage line; the PLY export CLI: only the query CLI's route
+    flags (a marked block), passed to the client."""
     original, copy = _texts(path)
     text = _without_note(path, copy)
+    if path in _ADDED_BLOCKS:
+        begin, end = _ADDED_BLOCKS[path]
+        i = text.index(begin)
+        text = text[:i] + text[text.index(end, i) + len(end):]
     for mine, theirs in _CHANGED_COPIES[path]:
         assert mine in text, mine
         text = text.replace(mine, theirs)
     assert text == original
+
+
+# --- the host tools: S2 building, export, upgrade, providers, traversal ----
+
+# Unchanged copies (the S2 reader now takes io.node_io's DataProvider, as
+# the original does).
+_TOOL_COPIES = ("core/color.py", "io/factory.py", "octree/traversal.py",
+                "s2_cells/splitter.py", "s2_cells/container.py",
+                "cli/build_s2.py", "cli/upgrade_octree.py")
+
+
+@pytest.mark.parametrize("path", _TOOL_COPIES)
+def test_tool_copies_are_their_originals(path):
+    _assert_unchanged_copy(path)
+
+
+# Parts added to trimmed copies for the tools, as (path, first line, end):
+# the text from the first line up to `end` (None: the file's end) is the
+# same in the copy and the original.
+_ADDED_PARTS = [
+    ("io/ply.py", "# Inverse of _PLY_DTYPES", "\n}\n"),
+    ("io/ply.py", "class PlyStreamWriter:", None),
+    ("io/node_io.py", "class DataProvider:", "\n\n\nclass "),
+    ("octree/node_id.py", "    def root(cls)", "\n\n"),
+    ("octree/node_id.py", "    def child(self", "\n\n"),
+    ("core/attributes.py", "    def from_array(cls", "\n\n\n"),
+    ("core/attributes.py", "_FROM_NP", "\n}\n"),
+    ("core/points_batch.py", "    def data_types(self)", "\n\n"),
+]
+
+
+@pytest.mark.parametrize("path,first,end", _ADDED_PARTS,
+                         ids=[f"{p}:{f.split('(')[0].split()[-1]}"
+                              for p, f, _ in _ADDED_PARTS])
+def test_added_parts_are_their_originals(path, first, end):
+    texts = []
+    for text in _texts(path):
+        i = text.index(first)
+        texts.append(text[i:] if end is None else text[i:text.index(end, i)])
+    assert texts[0] == texts[1] and len(texts[0]) > len(first)

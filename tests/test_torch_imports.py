@@ -1,8 +1,8 @@
 """The PyTorch port imports without jax (the GPU machine has none) and
 without the JAX package, builds, views (headless, through GL and through
-the windowed shell), queries, serves and runs the x-ray CLIs with both
-refused, asks for CUDA only explicitly, and never counts a kernel launch on
-the CPU."""
+the windowed shell), queries, serves, runs the x-ray CLIs and the host
+tools and its campaigns with both refused, asks for CUDA only explicitly,
+and never counts a kernel launch on the CPU."""
 
 import os
 import subprocess
@@ -101,6 +101,17 @@ _PORT_MODULES = [
     "point_cloud_viewer_tpu_torch.xray.backend",
     "point_cloud_viewer_tpu_torch.cli.points_web_viewer",
     "point_cloud_viewer_tpu_torch.cli.xray_web_viewer",
+    "point_cloud_viewer_tpu_torch.core.color",
+    "point_cloud_viewer_tpu_torch.io.factory",
+    "point_cloud_viewer_tpu_torch.octree.traversal",
+    "point_cloud_viewer_tpu_torch.s2_cells.splitter",
+    "point_cloud_viewer_tpu_torch.cli.build_s2",
+    "point_cloud_viewer_tpu_torch.cli.export_ply",
+    "point_cloud_viewer_tpu_torch.cli.upgrade_octree",
+    "point_cloud_viewer_tpu_torch.tools",
+    "point_cloud_viewer_tpu_torch.tools.fuzz_differential",
+    "point_cloud_viewer_tpu_torch.tools.fuzz_crash_resume",
+    "point_cloud_viewer_tpu_torch.tools.fuzz_xray",
 ]
 
 
@@ -587,3 +598,92 @@ def test_viewers_and_servers_stand_alone(tmp_path):
         print(*said)
     """)
     assert "window" in out and "served" in out
+
+
+def test_tools_and_campaigns_stand_alone(tmp_path):
+    """With jax and the JAX package refused: a PLY written by the port's
+    write_ply through cli.build_s2, the S2 cloud queried (filter on CPU
+    tensors and on the host, the same points) and exported by
+    cli.export_ply on both routes (the same sorted rows), a v11 meta.pb
+    through cli.upgrade_octree, and one iteration of each campaign twin on
+    the CPU."""
+    out = _run_refused(f"""
+        import contextlib, io, os
+
+        import numpy as np
+        from point_cloud_viewer_tpu_torch.cli import build_s2, export_ply
+        from point_cloud_viewer_tpu_torch.cli import upgrade_octree
+        from point_cloud_viewer_tpu_torch.core.points_batch import PointsBatch
+        from point_cloud_viewer_tpu_torch.io.ply import PlyReader, write_ply
+        from point_cloud_viewer_tpu_torch.math import wgs84
+        from point_cloud_viewer_tpu_torch.math.geometry import Aabb
+        from point_cloud_viewer_tpu_torch.protos import pbwire as pb
+        from point_cloud_viewer_tpu_torch.protos.meta import MetaProto
+        from point_cloud_viewer_tpu_torch.query.client import PointCloudClient
+        from point_cloud_viewer_tpu_torch.query.point_query import PointQuery
+        from point_cloud_viewer_tpu_torch.tools import (
+            fuzz_crash_resume, fuzz_differential, fuzz_xray)
+
+        def run(main, args):
+            with contextlib.redirect_stdout(io.StringIO()) as buf:
+                assert main(args) == 0
+            return buf.getvalue()
+
+        tmp = {str(tmp_path)!r}
+        rng = np.random.default_rng(8)
+        n = 20_000
+        lat = np.deg2rad(47.0 + rng.random(n) * 0.01)
+        lon = np.deg2rad(8.0 + rng.random(n) * 0.01)
+        ecef = wgs84.geodetic_to_ecef(lat, lon, rng.random(n) * 50.0)
+        ply = os.path.join(tmp, "site.ply")
+        write_ply(ply, PointsBatch(position=ecef, attributes={{
+            "color": rng.integers(0, 256, (n, 3), dtype=np.uint8)}}))
+        s2dir = os.path.join(tmp, "s2")
+        assert "20000 points" in run(build_s2.main, [
+            ply, "--output_directory", s2dir, "--split_level", "16"])
+        mid = ecef.mean(axis=0)
+        box = Aabb(mid - 300.0, mid + 200.0)
+        got = []
+        for kwargs in ({{"device": "cpu"}}, {{"device_filter": False}}):
+            client = PointCloudClient.from_locations([s2dir], **kwargs)
+            pos = np.concatenate([b.position for b in client.stream(
+                PointQuery(attributes=["color"], location=box))])
+            got.append(pos[np.lexsort(pos.T)])
+        assert got[0].tobytes() == got[1].tobytes()
+        assert len(got[0]) == box.contains(ecef).sum() > 0
+        flag = "--aabb=" + ",".join(repr(float(v)) for v in
+                                    [*box.mins, *box.maxs])
+        rows = []
+        for route in (["--device", "cpu"], ["--no-device_filter"]):
+            path = os.path.join(tmp, route[-1].strip("-") + ".ply")
+            run(export_ply.main, [s2dir, "--output", path, flag, *route])
+            b = PlyReader(path).read_all()
+            order = np.lexsort(b.position.T)
+            rows.append((b.position[order].tobytes(),
+                         b.attributes["color"][order].tobytes()))
+        assert rows[0] == rows[1] and rows[0][0] == got[0].tobytes()
+        bbox = pb.FieldWriter()
+        for f, xyz in ((3, (0.0, 0.0, 0.0)), (4, (2.0, 2.0, 2.0))):
+            v = pb.FieldWriter()
+            for i, x in enumerate(xyz, 1):
+                v.double(i, x)
+            bbox.message(f, v.finish())
+        meta = pb.FieldWriter()
+        meta.varint(1, 11, signed=True)
+        meta.double(3, 0.01)
+        meta.message(4, bbox.finish())
+        old = os.path.join(tmp, "old")
+        os.makedirs(old)
+        with open(os.path.join(old, "meta.pb"), "wb") as f:
+            f.write(meta.finish())
+        run(upgrade_octree.main, [old])
+        with open(os.path.join(old, "meta.pb"), "rb") as f:
+            assert MetaProto.decode(f.read()).version == 13
+        os.environ["FUZZ_MAX_ITERS"] = "1"
+        for twin in (fuzz_differential, fuzz_crash_resume, fuzz_xray):
+            said = run(twin.main, ["60", "--device", "cpu"])
+            assert said.strip().endswith("1 iterations, no failures"), said
+        assert_nothing_refused_loaded()
+        print("tools stand alone", len(got[0]))
+    """)
+    assert "tools stand alone" in out

@@ -33,6 +33,9 @@ from point_cloud_viewer_tpu_torch.query.client import PointCloudClient
 from point_cloud_viewer_tpu_torch.query.location import location_for
 from point_cloud_viewer_tpu_torch.query.point_query import PointQuery
 from point_cloud_viewer_tpu_torch.s2_cells.cell_union import CellUnion
+from point_cloud_viewer_tpu_torch.s2_cells.splitter import (
+    build_s2_cloud as port_build_s2_cloud)
+from tests.conftest import assert_dirs_byte_equal
 
 LAT, LON = 12.3, 45.6
 SITE = np.array([400.0, 400.0, 30.0])  # metres, local east/north/up
@@ -52,7 +55,8 @@ def _one_torch_thread():
 def site(tmp_path_factory):
     """120,000 ECEF points over a 400 x 400 x 30 m site (half uniform, half
     in 8 Gaussian clusters), colour and intensity; the JAX package builds
-    an octree (1 mm) and an S2 cloud of them."""
+    an octree (1 mm) and an S2 cloud of them, and the port's splitter an S2
+    cloud byte-equal to the JAX one."""
     rng = np.random.default_rng(42)
     n = 120_000
     local = (rng.random((n, 3)) - 0.5) * SITE
@@ -68,6 +72,10 @@ def site(tmp_path_factory):
     s2dir = str(tmp_path_factory.mktemp("s2"))
     jax_build(octree, 0.001, batch)
     build_s2_cloud(s2dir, batch)
+    port_s2 = str(tmp_path_factory.mktemp("s2_port"))
+    port_build_s2_cloud(port_s2, PointsBatch(position=batch.position,
+                                             attributes=batch.attributes))
+    assert_dirs_byte_equal(s2dir, port_s2, context="S2 splitters")
     return {"batch": batch, "frame": frame, "octree": octree, "s2": s2dir}
 
 
