@@ -4,8 +4,9 @@ one NVIDIA GPU.  Run from the repository root:
 
     python3 chip_smoke.py
 
-(`python3 chip_smoke.py --tools` runs phases 2, 5 and 14 alone, with
-their checks and log lines, and prints no result line.)
+(`python3 chip_smoke.py --tools` runs phases 2, 5 and 14 alone, and
+`python3 chip_smoke.py --api` phases 2, 5 and 15, with their checks and
+log lines; neither prints a result line.)
 
 Phases (any failure raises and the exit code is non-zero):
   1. device  -- require CUDA; print the card's name and power limit; a
@@ -203,14 +204,33 @@ Phases (any failure raises and the exit code is non-zero):
                 each ending with "no failures", K4 and K6 launched over
                 each differential run and over the crash-resume run's
                 device bucket route, the crash hooks restored;
+  15. api (run after 11, before 12, which deletes phase 5's PLY) -- a.
+                the package root's twelve names (`__all__`) resolve; b. a
+                child (`chip_smoke.py --trace-build`) builds phase 5's PLY
+                in core on the card through the root's build_octree under
+                utils.progress.torch_trace, byte-equal to phase 5's build;
+                from its Chrome trace: the traced window, the card's busy
+                time (union of kernel, memcpy and memset intervals), the
+                idle share, K6's, K4's and K1's launches (each > 0) and the
+                five device operations that took most time; c. the padded
+                entries (tree_codes_grouped_on_device_padded,
+                tree_codes_on_device_padded) at 16,000,017 synthetic codes
+                (padded to 16,777,216) and at 65,537 against the unpadded
+                tree_codes_grouped_on_device, rows [0, n), level counts and
+                extras bit for bit, K6 = K4 = 1 a call; sort_codes_device
+                against argsort_codes_on_device; d. the culling building
+                blocks (node_corners, sat_relation_device,
+                relative_sizes_on_screen_device) on phase 6's 1,048,576-node
+                table, card against device="cpu" bit for bit; e. in a child
+                with PCV_DISABLE_NATIVE=1, native.available() is False;
   8. probe + bounds -- K7 (copy, triad, add3) against its plain version
                 at 128,000,000 and ragged n, bit for bit; the streaming-
                 bandwidth probes (hbm_probes: add_1d, add_2d, copy, triad,
                 add3) and torch.add's time; then, for K1-K7, the least bytes
                 a launch moves, its launches per main-path call (16M
                 in-core build, streamed bucket, deep 16M build, 16M mesh
-                build on 4 shards, viewer frame, --gl frame, windowed
-                frame), its bound
+                build on 4 shards, padded grouped entry, viewer frame,
+                --gl frame, windowed frame), its bound
                 (bytes over the card's memory rate -- the larger of its
                 published peak and the measured probe rate -- or K5's f32
                 operations over the card's published f32 peak where
@@ -301,6 +321,8 @@ CAMPAIGNS = (                        # phase 14e: twin, FUZZ_SEED, iterations
     ("fuzz_xray", 4, 8),
 )
 CAMPAIGN_SECONDS = 600               # phase 14e: each twin's deadline
+API_ROWS = (16_000_017, 65_537)      # phase 15c: padded to 2^24 and 98,304
+API_TOP_OPS = 5                      # phase 15b: device operations listed
 # f32 rate outside the tensor cores, NVIDIA H100 SXM data sheet (an FMA
 # counts two operations), at the 700 W power limit.
 FP32_PEAK_OPS = 67e12
@@ -3572,6 +3594,287 @@ def phase_tools(wrappers: dict, tmp: str, octree_dir: str) -> dict:
     return counts
 
 
+# --- phase 15: the public surface ----------------------------------------
+
+# The kernels of a traced build, by the names of their CUDA functions: K6's
+# leaf stage is three, K4's promotion stage one; K1 runs on the look-back
+# scan that K2 and K3 share, whose launches on the build path are K1's
+# (the child's counters hold K2 = K3 = 0).
+TRACE_KERNELS = {"K6": ("leaf_bounds", "leaf_carry_scan", "leaf_assign"),
+                 "K4": ("promote_levels",), "K1": ("lookback_scan",)}
+
+
+def trace_build_main(args: list) -> int:
+    """`chip_smoke.py --trace-build PLY OUT LOG_DIR` (phase 15b's child):
+    the PLY built in core on the card by the package root's build_octree,
+    as cli.build_octree builds it, under utils.progress.torch_trace (the
+    PLY read and the card's start-up outside the trace); prints one JSON
+    line: the build's wall, its phases and the wrappers' launches."""
+    sys.meta_path.insert(0, RefuseJaxPackage())
+    import torch
+
+    import point_cloud_viewer_tpu_torch as pcv
+    from point_cloud_viewer_tpu_torch.io.ply import PlyReader
+    from point_cloud_viewer_tpu_torch.ops import _ext
+    from point_cloud_viewer_tpu_torch.ops import leaf_levels_cuda as K6
+    from point_cloud_viewer_tpu_torch.ops import level_cuda as LC
+    from point_cloud_viewer_tpu_torch.ops import scan_cuda as SC
+    from point_cloud_viewer_tpu_torch.utils.progress import torch_trace
+
+    ply, out, log_dir = args
+    batch = PlyReader(ply).read_all()
+    torch.zeros(1, device=DEVICE)
+    _ext.lib()
+    torch.cuda.synchronize()
+    phases = {}
+    t0 = time.perf_counter()
+    with torch_trace(log_dir):
+        pcv.build_octree(out, 0.001, batch, phase_times=phases,
+                         device=DEVICE)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"K1": SC.scan_1d.launches, "K2": LC.seg_start_pass.launches,
+                "K3": LC.leaf_update_pass.launches,
+                "K4": LC.promote_stage.launches, "K6": K6.leaf_stage.launches,
+                "K4 pass": LC.promote_pass.launches}
+    print(json.dumps({"wall": wall, "phases": phases, "launches": launches}),
+          flush=True)
+    return 0
+
+
+def trace_readings(path: str) -> dict:
+    """A Chrome trace of torch_trace -> the traced window (first to last
+    event, s), the device's busy time (the union of its kernel, memcpy and
+    memset intervals, s), the idle share, launches of TRACE_KERNELS' names
+    and the API_TOP_OPS device operations that took most time."""
+    from point_cloud_viewer_tpu_torch.testing import kernel_name
+
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if isinstance(e, dict) and e.get("ph") == "X"
+                  and "dur" in e]
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+             for e in events]
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not spans or not device:
+        raise AssertionError(f"{path}: {len(spans)} events, {len(device)} "
+                             "on the device")
+    window = (max(b for _, b in spans) - min(a for a, _ in spans)) / 1e6
+    busy, end = 0.0, -np.inf
+    for a, b in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                       for e in device):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy /= 1e6
+    ops, kernels = {}, {k: 0 for k in TRACE_KERNELS}
+    for e in device:
+        name = (kernel_name(e["name"]) if e.get("cat") == "kernel"
+                else e["name"])[:60]
+        total, count = ops.get(name, (0.0, 0))
+        ops[name] = (total + float(e["dur"]) / 1e3, count + 1)
+        for k, names in TRACE_KERNELS.items():
+            kernels[k] += kernel_name(e["name"]) in names
+    top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:API_TOP_OPS]
+    return {"window_s": window, "busy_s": busy, "idle": 1.0 - busy / window,
+            "kernels": kernels, "device_events": len(device), "top": top}
+
+
+def api_trace_build(tmp: str, ply16: str, incore16: str) -> dict:
+    """15b: phase 5's PLY through the package root's build_octree under
+    torch_trace, in a child (profiles late in this process drop records,
+    7d), byte-compared with phase 5's build; the trace's readings."""
+    import subprocess
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(tmp, "traced16")
+    log_dir = os.path.join(tmp, "trace16")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(here, "chip_smoke.py"), "--trace-build",
+         ply16, out, log_dir], cwd=here, capture_output=True, text=True,
+        timeout=600)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"chip_smoke.py --trace-build exited "
+                             f"{proc.returncode}: {proc.stderr[-4000:]}")
+    said = json.loads(proc.stdout.strip().splitlines()[-1])
+    files = dirs_byte_equal(incore16, out)
+    shutil.rmtree(out)
+    (name,) = os.listdir(log_dir)
+    size = os.path.getsize(os.path.join(log_dir, name))
+    r = trace_readings(os.path.join(log_dir, name))
+    shutil.rmtree(log_dir)
+    log(f"api trace: the root's build_octree under torch_trace (child "
+        f"{child_s:.3f} s): wall {said['wall']:.3f} s, phases (s) "
+        f"{json.dumps(said['phases'])}; == phase 5's build, {files} files "
+        f"byte-equal; launches {json.dumps(said['launches'])}; trace "
+        f"{size} B, {r['device_events']} device events")
+    log(f"api trace: traced window {r['window_s']:.6f} s, device busy "
+        f"{r['busy_s']:.6f} s (kernels, memcpys, memsets), idle share "
+        f"{r['idle']:.6f}; kernels in the trace {json.dumps(r['kernels'])}")
+    log("api trace: top device operations (ms, count): " + "; ".join(
+        f"{n} {ms:.4f} x{c}" for n, (ms, c) in r["top"]))
+    missing = [k for k, c in r["kernels"].items() if c <= 0]
+    stray = {k: said["launches"][k] for k in OFF_PATH
+             if said["launches"][k] != 0}
+    if missing or stray:
+        raise AssertionError(f"api trace: no launch of {missing} in the "
+                             f"trace; off-path launches {stray}")
+    return r
+
+
+def api_padded(wrappers: dict) -> dict:
+    """15c: the padded entries at API_ROWS (phase 4's generator) against
+    the unpadded tree_codes_grouped_on_device on the card, rows [0, n),
+    level counts and extras bit for bit, K6 = K4 = 1 a call; and
+    sort_codes_device against argsort_codes_on_device.  Returns the
+    launches of one padded grouped call at API_ROWS[0]."""
+    import torch
+
+    from point_cloud_viewer_tpu_torch.ops import morton
+    from point_cloud_viewer_tpu_torch.ops import tree_build as TB
+
+    per_call = None
+    for n in API_ROWS:
+        codes = synthetic_codes(n, seed=n + 1)
+        hi, lo = morton.split_u64(codes)
+        want = TB.tree_codes_grouped_on_device(codes, DEPTH, DEPTH,
+                                               device=DEVICE)
+        counts = {}
+        t0 = time.perf_counter()
+        for w in wrappers.values():
+            w.launches = 0
+        got, n_got = TB.tree_codes_grouped_on_device_padded(
+            hi, lo, DEPTH, DEPTH, device=DEVICE)
+        torch.cuda.synchronize()
+        grouped_s = time.perf_counter() - t0
+        counts["grouped"] = {k: w.launches for k, w in wrappers.items()}
+        for w in wrappers.values():
+            w.launches = 0
+        idx, final, leaf, n_classic = TB.tree_codes_on_device_padded(
+            hi, lo, DEPTH, DEPTH, device=DEVICE)
+        torch.cuda.synchronize()
+        counts["classic"] = {k: w.launches for k, w in wrappers.items()}
+        padded = got.order2.shape[0]
+        total = int(want.extras_total)
+        cap = min(got.extras_idx.shape[0], want.extras_idx.shape[0])
+        checks = {
+            "n": n_got == n_classic == n,
+            "order2": torch.equal(got.order2[:n], want.order2),
+            "level_counts": torch.equal(got.level_counts[:-1],
+                                        want.level_counts[:-1]),
+            "pad bin": int(got.level_counts[-1]) == padded - n,
+            "extras_total": int(got.extras_total) == total,
+            "extras": (torch.equal(got.extras_idx[:min(total, cap)],
+                                   want.extras_idx[:min(total, cap)])
+                       and torch.equal(got.extras_level[:min(total, cap)],
+                                       want.extras_level[:min(total, cap)])),
+        }
+        for name, a, b in (("idx", got.idx, want.idx),
+                           ("final", got.final, want.final),
+                           ("leaf", got.leaf, want.leaf),
+                           ("classic idx", idx, want.idx),
+                           ("classic final", final, want.final),
+                           ("classic leaf", leaf, want.leaf)):
+            checks[name] = torch.equal(a[:n], b)
+        for call, c in counts.items():
+            checks[f"{call} K6 = K4 = 1"] = c["K6"] == c["K4"] == 1
+        sort = TB.sort_codes_device(torch.from_numpy(hi.astype(np.int64)).to(
+            DEVICE), torch.from_numpy(lo.astype(np.int64)).to(DEVICE))
+        _, order = TB.argsort_codes_on_device(codes, DEVICE)
+        checks["sort_codes_device"] = bool(np.array_equal(
+            sort.cpu().numpy().astype(np.int64), order))
+        log(f"api padded n={n} -> {padded} rows: grouped {grouped_s:.3f} s "
+            f"(upload included); launches a call {json.dumps(counts)}; "
+            f"extras_total {total}; {checks}")
+        if not all(checks.values()):
+            raise AssertionError(f"api padded n={n}: {checks}")
+        if per_call is None:
+            per_call = counts["grouped"]
+        del want, got, idx, final, leaf, sort
+        torch.cuda.empty_cache()
+    return per_call
+
+
+def api_culling() -> None:
+    """15d: node_corners, sat_relation_device and
+    relative_sizes_on_screen_device on phase 6's node table on the card
+    against device="cpu", bit for bit, for the partial and the off-axis
+    frustum of phase 6a."""
+    import torch
+
+    from point_cloud_viewer_tpu_torch.ops import culling as C
+
+    mins, edges, _ = synthetic_node_table(CULL_NODES, seed=5)
+    frusta = cull_frusta(C)
+    for name in ("partial", "off_axis"):
+        axes, qmin, qmax = C.frustum_axes_and_projections(frusta[name])
+        arrays = (mins.astype(np.float32), edges.astype(np.float32), axes,
+                  qmin, qmax, frusta[name].clip_from_query.astype(np.float32))
+        out, secs = {}, {}
+        for dev in (DEVICE, "cpu"):
+            m, e, a, lo, hi, mat = (torch.from_numpy(x).to(dev)
+                                    for x in arrays)
+            t0 = time.perf_counter()
+            corners = C.node_corners(m, e)
+            rel = C.sat_relation_device(a, lo, hi, corners)
+            sizes = C.relative_sizes_on_screen_device(mat, corners)
+            if dev == DEVICE:
+                torch.cuda.synchronize()
+            secs[dev] = time.perf_counter() - t0
+            out[dev] = [t.cpu() for t in (corners, rel, sizes)]
+        same = [torch.equal(a.view(torch.uint8) if a.is_floating_point()
+                            else a, b.view(torch.uint8)
+                            if b.is_floating_point() else b)
+                for a, b in zip(out[DEVICE], out["cpu"])]
+        rel = out["cpu"][1]
+        log(f"api culling {name} ({len(axes)} axes, {CULL_NODES} nodes): "
+            f"card == CPU bit for bit (corners, relations, sizes) {same}; "
+            f"in / cross / out {[int((rel == r).sum()) for r in range(3)]}; "
+            f"card {secs[DEVICE]:.3f} s, CPU {secs['cpu']:.3f} s")
+        if not all(same):
+            raise AssertionError(f"api culling {name}: card != CPU {same}")
+
+
+def phase_api(wrappers: dict, tmp: str, ply16: str, incore16: str) -> tuple:
+    """15: the package root's names (a), the traced 16M build (b), the
+    padded entries and the device sort (c), the culling building blocks
+    (d) and PCV_DISABLE_NATIVE (e).  Returns (15b's readings, 15c's
+    launches of one padded grouped call)."""
+    import subprocess
+
+    import point_cloud_viewer_tpu_torch as pcv
+
+    t_phase = time.perf_counter()
+    resolved = {name: getattr(pcv, name) for name in pcv.__all__}
+    log(f"api root: {len(resolved)} names resolve: " + ", ".join(
+        f"{k}={v!r}" if isinstance(v, (int, str)) else
+        f"{k}={v.__module__}" for k, v in resolved.items()))
+    if len(resolved) != 12:
+        raise AssertionError(f"api root: __all__ has {len(resolved)} names")
+    trace = api_trace_build(tmp, ply16, incore16)
+    per_call = api_padded(wrappers)
+    api_culling()
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-c", "from point_cloud_viewer_tpu_torch import "
+         "native; print(native.available())"], cwd=here,
+        env={**os.environ, "PCV_DISABLE_NATIVE": "1"}, capture_output=True,
+        text=True, timeout=120)
+    said = proc.stdout.strip()
+    from point_cloud_viewer_tpu_torch import native
+
+    log(f"api native: native.available() is {said} in a child with "
+        f"PCV_DISABLE_NATIVE=1, {native.available()} here")
+    if proc.returncode != 0 or said != "False":
+        raise AssertionError(f"api native: {proc.returncode} {said} "
+                             f"{proc.stderr[-2000:]}")
+    log(f"api: phase 15 took {time.perf_counter() - t_phase:.3f} s")
+    return trace, per_call
+
+
 # --- phase 8: K7, the probes, and every kernel's bound -------------------
 
 
@@ -3712,10 +4015,10 @@ def build_all() -> None:
             log("  " + line.strip())
 
 
-def tools_main() -> int:
-    """`chip_smoke.py --tools`: phase 2, phase 5 (phase 14d's octree) and
-    phase 14 alone, with their log lines and checks; prints no result
-    line.  PERF.md's phase-14 measurements come from it."""
+def run_alone(flag: str, body) -> int:
+    """`chip_smoke.py FLAG`: phase 2, phase 5 and body(wrappers, tmp,
+    phase 5's PLY, phase 5's octree) alone, with their log lines and
+    checks; prints no result line."""
     sys.meta_path.insert(0, RefuseJaxPackage())
     import torch
 
@@ -3737,19 +4040,24 @@ def tools_main() -> int:
              "K6": K6.leaf_stage, "K4 pass": LC.promote_pass}
     tmp = tempfile.mkdtemp(prefix="pcv_chip_smoke_")
     try:
-        octree_dir = phase_e2e(build, tmp)[1]
-        phase_tools(build, tmp, octree_dir)
+        _, octree_dir, ply, _, _ = phase_e2e(build, tmp)
+        body(build, tmp, ply, octree_dir)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    log(f"--tools total {time.perf_counter() - t_start:.3f} s")
+    log(f"{flag} total {time.perf_counter() - t_start:.3f} s")
     return 0
 
 
 def main() -> int:
     if sys.argv[1:] == ["--device-ops"]:
         return device_ops_main()
-    if sys.argv[1:] == ["--tools"]:
-        return tools_main()
+    if sys.argv[1:] == ["--tools"]:  # PERF.md's phase-14 numbers
+        return run_alone("--tools", lambda build, tmp, ply, octree_dir:
+                         phase_tools(build, tmp, octree_dir))
+    if sys.argv[1:] == ["--api"]:
+        return run_alone("--api", phase_api)
+    if sys.argv[1:2] == ["--trace-build"]:
+        return trace_build_main(sys.argv[2:])
     finder = RefuseJaxPackage()
     sys.meta_path.insert(0, finder)
     import torch
@@ -3828,6 +4136,7 @@ def main() -> int:
         phase_query(build, tmp)
         xray_dir = phase_xray({**build, "K5": CC.cull_lod,
                                "K7": K7.stream_probe}, tmp, octree_dir)
+        _, api_calls = phase_api(build, tmp, ply, octree_dir)
         mesh = phase_mesh(build, tmp, ply, octree_dir, incore_phases,
                           deep_dir)
         viewers = phase_viewers(octree_dir, xray_dir, tmp)
@@ -3863,6 +4172,7 @@ def main() -> int:
                     "streamed bucket": streamed.get(k, 0) / buckets,
                     "deep 16M build": deep.get(k, 0),
                     f"mesh 16M build ({MESH_SHARDS} shards)": mesh.get(k, 0),
+                    "padded grouped entry": api_calls.get(k, 0),
                     "viewer frame": (launches["K5"] / VIEW_FRAMES
                                      if k == "K5" else 0),
                     "--gl frame": (None if viewers["gl"] is None else

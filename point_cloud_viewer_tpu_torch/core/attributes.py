@@ -1,5 +1,6 @@
 """Point attribute data model (copy of point_cloud_viewer_tpu/core/
-attributes.py:19-108, trimmed to what the port reads and writes).
+attributes.py:19-108, trimmed to what the port reads and writes, and the
+public names of the original).
 
 Attributes are stored structure-of-arrays: each attribute is one contiguous
 numpy array of shape (N,) or (N, 3).  The supported data types and their
@@ -42,6 +43,12 @@ class AttributeDataType(enum.IntEnum):
     def dim(self) -> int:
         """Number of scalar components per point (1 or 3)."""
         return 3 if self in (AttributeDataType.U8VEC3, AttributeDataType.F64VEC3) else 1
+
+    # attributes.py:45-48, unchanged.
+    @property
+    def size_bytes(self) -> int:
+        """Bytes per point on disk (reference: src/attributes.rs:64-73)."""
+        return self.numpy_dtype.itemsize * self.dim
 
     @classmethod
     def from_array(cls, arr: np.ndarray) -> "AttributeDataType":

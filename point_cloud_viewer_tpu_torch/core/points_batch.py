@@ -1,6 +1,6 @@
 """PointsBatch — the structure-of-arrays point container (copy of
 point_cloud_viewer_tpu/core/points_batch.py:21-106, trimmed to the methods
-the port calls).
+the port calls and the public ones of the original).
 
 The framework's unit of streaming: positions of shape (N, 3) float64 plus a
 dict of per-point attribute arrays (reference: src/lib.rs:100-191).
@@ -9,7 +9,7 @@ dict of per-point attribute arrays (reference: src/lib.rs:100-191).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 
@@ -95,6 +95,14 @@ class PointsBatch:
                 k: np.concatenate([b.attributes[k] for b in batches]) for k in names
             },
         )
+
+    # points_batch.py:101-106, unchanged.
+    def append(self, other: "PointsBatch") -> "PointsBatch":
+        """Concatenate `other` onto this batch, returning the new batch."""
+        return PointsBatch.concatenate([self, other])
+
+    def get_attribute(self, name: str) -> Optional[np.ndarray]:
+        return self.attributes.get(name)
 
 
 def as_points_batch(data):

@@ -89,6 +89,21 @@ class OnDiskDataProvider(DataProvider):
                 raise NodeNotFound(path)
         return out
 
+    # node_io.py:92-104, unchanged.
+    def number_of_points(self, node_name: str) -> int:
+        """Point count from the color file size / 3 (the reference's
+        convention, src/data_provider/on_disk.rs:23-33); falls back to the
+        intensity file (f32) if there is no color."""
+        stem = self.stem(node_name)
+        try:
+            return os.path.getsize(stem + ".rgb") // 3
+        except OSError:
+            pass
+        try:
+            return os.path.getsize(stem + ".intensity") // 4
+        except OSError:
+            raise NodeNotFound(stem)
+
 
 # ---------------------------------------------------------------------------
 # Writing

@@ -1,13 +1,16 @@
 """ctypes bindings for the port's host-native C++ kernels (pcv_native.cpp).
 
-Copy of point_cloud_viewer_tpu/native/__init__.py:49-557, trimmed to the
-functions the port calls.  The library is compiled with g++ on first use
+Copy of point_cloud_viewer_tpu/native/__init__.py:28-557, trimmed to the
+functions the port calls and the public ones of the original: every
+public function of the original is here but for the wrapper-less
+decode_to_f32_relative.  The library is compiled with g++ on first use
 into point_cloud_viewer_tpu_torch/_build/ (listed in .gitignore), with the
 JAX package's flags (native/__init__.py:55-57), and rebuilt when the
 source is newer.  Every entry point returns None when the library is
 unavailable (no g++, or a build that does not load) and its caller takes
-its numpy fallback, as in the JAX package.  This is host code: no entry
-here touches a GPU.
+its numpy fallback, as in the JAX package; `disabled()` and a truthy
+PCV_DISABLE_NATIVE (1, true, yes, on) force those fallbacks, as there.
+This is host code: no entry here touches a GPU.
 """
 
 from __future__ import annotations
@@ -29,7 +32,32 @@ _SO = os.path.join(BUILD_DIR, "libpcv_native.so")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+_disabled = False
 build_seconds = 0.0  # g++ wall time of this process's last build
+
+
+# --- copied from point_cloud_viewer_tpu/native/__init__.py:28-46 ----------
+
+
+def disabled():
+    """Context manager forcing the numpy fallbacks (for baseline benches).
+
+    PROCESS-GLOBAL and not reentrant: it flips a module flag every thread
+    sees, so only use it from single-threaded bench/test code — never
+    around work that overlaps viewer loaders or query workers."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def _ctx():
+        global _disabled
+        prev = _disabled
+        _disabled = True
+        try:
+            yield
+        finally:
+            _disabled = prev
+
+    return _ctx()
 
 
 def _build() -> bool:
@@ -96,6 +124,11 @@ def sdl2_stub_path() -> str:
 
 def lib() -> Optional[ctypes.CDLL]:
     global _lib, _tried
+    # The switch of native/__init__.py:71-74, unchanged.
+    if _disabled or os.environ.get("PCV_DISABLE_NATIVE", "").lower() in (
+        "1", "true", "yes", "on"
+    ):
+        return None
     with _lock:
         if _lib is not None or _tried:
             return _lib
@@ -107,7 +140,7 @@ def lib() -> Optional[ctypes.CDLL]:
             handle = ctypes.CDLL(_SO)
         except OSError:
             return None
-        if handle.pcv_native_abi_version() != 4:
+        if handle.pcv_native_abi_version() != 5:
             return None
         _configure(handle)
         _lib = handle
@@ -121,6 +154,14 @@ def available() -> bool:
 def _configure(h: ctypes.CDLL) -> None:
     from ctypes import POINTER, c_double, c_float, c_int64, c_uint8, c_uint16, c_uint32, c_uint64
 
+    h.encode_positions_u8.argtypes = [
+        POINTER(c_double), POINTER(c_double), POINTER(c_double), c_int64,
+        POINTER(c_uint8),
+    ]
+    h.encode_positions_u16.argtypes = [
+        POINTER(c_double), POINTER(c_double), POINTER(c_double), c_int64,
+        POINTER(c_uint16),
+    ]
     h.decode_positions_u8.argtypes = [
         POINTER(c_uint8), POINTER(c_double), POINTER(c_double), c_int64,
         POINTER(c_double),
@@ -225,6 +266,35 @@ def radix_argsort_u64(keys: np.ndarray) -> Optional[Tuple[np.ndarray, np.ndarray
         _ptr(perm, ctypes.c_int64), _ptr(out, ctypes.c_uint64),
     )
     return out, perm
+
+
+# native/__init__.py:222-247, unchanged.
+def encode_positions(positions, cube_min, edge, dtype) -> Optional[np.ndarray]:
+    """Interleaved fixpoint encode (u8/u16 only), or None."""
+    h = lib()
+    if h is None:
+        return None
+    n = len(positions)
+    positions = np.ascontiguousarray(positions, dtype=np.float64)
+    cube_min = np.ascontiguousarray(
+        np.broadcast_to(cube_min, (n, 3)), dtype=np.float64
+    )
+    edge = np.ascontiguousarray(np.broadcast_to(edge, (n,)), dtype=np.float64)
+    if dtype == np.uint8:
+        out = np.empty((n, 3), dtype=np.uint8)
+        h.encode_positions_u8(
+            _ptr(positions, ctypes.c_double), _ptr(cube_min, ctypes.c_double),
+            _ptr(edge, ctypes.c_double), n, _ptr(out, ctypes.c_uint8),
+        )
+        return out
+    if dtype == np.uint16:
+        out = np.empty((n, 3), dtype=np.uint16)
+        h.encode_positions_u16(
+            _ptr(positions, ctypes.c_double), _ptr(cube_min, ctypes.c_double),
+            _ptr(edge, ctypes.c_double), n, _ptr(out, ctypes.c_uint16),
+        )
+        return out
+    return None
 
 
 def quantize_morton(

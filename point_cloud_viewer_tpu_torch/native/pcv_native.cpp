@@ -4,10 +4,10 @@
 // decode, Morton encoding and the radix argsort, the host tree derivation
 // tree_levels (pcv_native.cpp:392-466: the host build route and the deep
 // build's smaller fat-cell sub-builds), the builder's grouping and
-// gathers, the host cull and the meta.pb fast parser).  Left out:
-// encode_positions_u8/u16 (the codec encodes in numpy, as ops/codec.py
-// does in the JAX package) and decode_to_f32_relative (pcv_native.cpp:
-// 267-276, the web viewer's wire decode).
+// gathers, the host cull, the meta.pb fast parser) and the position
+// encode behind native.encode_positions (pcv_native.cpp:47-67).  Left
+// out: decode_to_f32_relative (pcv_native.cpp:267-276), which no Python
+// wrapper of the JAX package calls.
 //
 // Built as a plain shared library with g++ (native/__init__.py); Python
 // binds via ctypes (no pybind11).
@@ -46,6 +46,28 @@ static inline double clamp01(double v) {
     if (!(v > 0.0)) return 0.0;  // also catches NaN
     if (v > 1.0) return 1.0;
     return v;
+}
+
+void encode_positions_u8(const double* pos, const double* cube_min,
+                         const double* edge, int64_t n, uint8_t* out) {
+    for (int64_t i = 0; i < n; ++i) {
+        const double e = edge[i];
+        for (int d = 0; d < 3; ++d) {
+            double t = e > 0.0 ? (pos[3 * i + d] - cube_min[3 * i + d]) / e : 0.0;
+            out[3 * i + d] = (uint8_t)(clamp01(t) * 255.0);
+        }
+    }
+}
+
+void encode_positions_u16(const double* pos, const double* cube_min,
+                          const double* edge, int64_t n, uint16_t* out) {
+    for (int64_t i = 0; i < n; ++i) {
+        const double e = edge[i];
+        for (int d = 0; d < 3; ++d) {
+            double t = e > 0.0 ? (pos[3 * i + d] - cube_min[3 * i + d]) / e : 0.0;
+            out[3 * i + d] = (uint16_t)(clamp01(t) * 65535.0);
+        }
+    }
 }
 
 void decode_positions_u8(const uint8_t* enc, const double* cube_min,
@@ -949,6 +971,6 @@ void counting_argsort_i64(const int64_t* ids, int64_t n,
     for (int64_t i = 0; i < n; ++i) order_out[pos[ids[i]]++] = i;
 }
 
-int pcv_native_abi_version() { return 4; }
+int pcv_native_abi_version() { return 5; }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 """Octree NodeId algebra (copy of point_cloud_viewer_tpu/octree/node_id.py:
 20-199, trimmed to what the builders, the octree, the web server and
-octree/traversal.py call).
+octree/traversal.py call, and the public names of the original).
 
 A NodeId packs an 8-bit level and a 120-bit base-8 path into a u128 (held as
 a Python int for scalars, or as (level u8, path u64) array pairs for the
@@ -12,7 +12,7 @@ significant axis.  (Reference semantics: src/octree/node.rs:25-172.)
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -60,6 +60,24 @@ class NodeId:
         assert 0 <= child_index < 8
         return NodeId.from_level_index(self.level + 1, (self.index << 3) + child_index)
 
+    # node_id.py:68-83, unchanged.
+    def parent(self) -> Optional["NodeId"]:
+        if self.level == 0:
+            return None
+        return NodeId.from_level_index(self.level - 1, self.index >> 3)
+
+    def child_index_in_parent(self) -> Optional[int]:
+        if self.level == 0:
+            return None
+        return self.index & 7
+
+    def ancestors(self) -> Iterator["NodeId"]:
+        """Self, parent, ..., root."""
+        node: Optional[NodeId] = self
+        while node is not None:
+            yield node
+            node = node.parent()
+
     def find_bounding_cube(self, root: Cube) -> Cube:
         """Descend from the root cube along the path; floating-point
         semantics match the reference (min += bit * halved_edge at each
@@ -75,6 +93,19 @@ class NodeId:
         return Cube(mn, edge)
 
 
+# node_id.py:100-109, unchanged.
+def child_index_from_cube(cube: Cube, points: np.ndarray) -> np.ndarray:
+    """Vectorized ChildIndex::from_bounding_cube: (N, 3) points -> (N,) uint8
+    with bit layout x<<2 | y<<1 | z and strict 'greater than center'
+    comparisons (reference: src/octree/node.rs:34-42)."""
+    gt = points > cube.center()
+    return (
+        gt[:, 0].astype(np.uint8) << 2
+        | gt[:, 1].astype(np.uint8) << 1
+        | gt[:, 2].astype(np.uint8)
+    )
+
+
 # ---------------------------------------------------------------------------
 # Vectorized (array) forms.  Single-word u64 paths cover levels <= 21 (the
 # builder's range — 63-bit Morton codes); two-word (hi, lo) u64 pairs cover
@@ -82,7 +113,16 @@ class NodeId:
 # (reference: src/octree/node.rs:52-56), so reference-built deep trees load.
 
 
+# node_id.py:120-128, unchanged.
+MAX_VECTOR_LEVEL = 21
 MAX_FORMAT_LEVEL = 40  # 120-bit path / 3 bits per level
+
+
+def pack_ids(levels: np.ndarray, paths: np.ndarray) -> list:
+    """(K,) levels + (K,) uint64 paths -> list of NodeId."""
+    return [
+        NodeId.from_level_index(int(l), int(p)) for l, p in zip(levels, paths)
+    ]
 
 
 def unpack_ids(ids) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -1,5 +1,5 @@
 """Position codecs: fixpoint / normalized-float encodings, vectorized (copy
-of point_cloud_viewer_tpu/ops/codec.py:23-129).
+of point_cloud_viewer_tpu/ops/codec.py:23-138).
 
 Every octree node stores positions scaled to its bounding cube
 ('ScaledToCube'): t = clamp((p - cube_min) / edge, 0, 1), stored either as
@@ -125,3 +125,13 @@ def decode_positions(
     else:
         t = encoded.astype(np.float64)
     return t * edge + cube_min
+
+
+# codec.py:132-138, unchanged.
+def encode_plain(positions: np.ndarray) -> np.ndarray:
+    """'Plain' encoding: raw little-endian f64 world coordinates."""
+    return np.asarray(positions, dtype="<f8")
+
+
+def decode_plain(encoded: np.ndarray) -> np.ndarray:
+    return encoded.astype(np.float64)

@@ -23,12 +23,74 @@ from ..device import resolve_device
 from ..math.geometry import Frustum, Isometry, Perspective  # noqa: F401 (re-exported)
 from .cull_cuda import cull_lod
 
-# --- copied from point_cloud_viewer_tpu/ops/culling.py:23-26 --------------
+# --- copied from point_cloud_viewer_tpu/ops/culling.py:19-26 --------------
+
+REL_IN = 0
+REL_CROSS = 1
+REL_OUT = 2
 
 # Unit cube corners, x fastest (matches octree.octree._CORNER_UNIT).
 _CORNER_UNIT = np.array(
     [[x, y, z] for z in (0, 1) for y in (0, 1) for x in (0, 1)], dtype=np.float32
 )
+
+
+# --- the cull's building blocks (culling.py:29-60) -------------------------
+#
+# In the JAX package these are jnp (no Pallas); here they are plain torch
+# on the device their inputs are on, beside K5 (cull_cuda.cull_lod), which
+# fuses them for the viewer.  Each 3-term projection is one chain of
+# elementwise ops in a fixed order (`_dot3`), so the card and the CPU give
+# the same bits (no matmul, so no TF32 and no blocking of its sums).
+
+
+def _dot3(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """sum_d v[..., d] * w[d] for d = 0, 1, 2 (w's components broadcast
+    against v's leading dims), summed as XLA:CPU sums jnp.einsum's
+    3-term dot: fma(v2, w2, fma(v1, w1, v0 * w0)).  Each fused
+    multiply-add is an f64 product (exact for f32 factors) plus an f64
+    add, rounded once to v's dtype: that is the f32 fma but where the f64
+    sum itself rounds onto an f32 halfway point (double rounding).  f64
+    inputs take a plain multiply-add chain."""
+    acc = v[..., 0] * w[0]
+    for d in (1, 2):
+        acc = (v[..., d].double() * w[d].double() + acc).to(v.dtype)
+    return acc
+
+
+def node_corners(mins: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    """(K, 3) mins + (K,) edges -> (K, 8, 3) cube corners."""
+    unit = torch.as_tensor(_CORNER_UNIT, dtype=mins.dtype, device=mins.device)
+    return mins[:, None, :] + unit[None, :, :] * edges[:, None, None]
+
+
+def sat_relation_device(
+    axes: torch.Tensor,  # (A, 3) separating axes
+    query_min_proj: torch.Tensor,  # (A,) query corners' min projection
+    query_max_proj: torch.Tensor,  # (A,)
+    corners: torch.Tensor,  # (K, 8, 3)
+) -> torch.Tensor:
+    """Batched SAT relations (K,) int8: 0=In, 1=Cross, 2=Out."""
+    proj = _dot3(corners[:, :, None, :], axes.T)  # (K, 8, A)
+    b_min = proj.amin(dim=1)
+    b_max = proj.amax(dim=1)
+    out = ((b_min > query_max_proj) | (b_max < query_min_proj)).any(dim=1)
+    cross = ((query_min_proj > b_min) | (b_max > query_max_proj)).any(dim=1)
+    rel = torch.where(cross, REL_CROSS, REL_IN)
+    return torch.where(out, REL_OUT, rel).to(torch.int8)
+
+
+def relative_sizes_on_screen_device(
+    matrix: torch.Tensor, corners: torch.Tensor
+) -> torch.Tensor:
+    """Projected screen-size heuristic (K,), the hemicube-clamped xy area of
+    the projected cube (reference: src/octree/mod.rs:119-139)."""
+    w = _dot3(corners, matrix[3, :3]) + matrix[3, 3]
+    x, y = ((_dot3(corners, matrix[r, :3]) + matrix[r, 3]) / w
+            for r in (0, 1))
+    x = x.clamp(-1.0, 1.0)
+    y = y.clamp(-1.0, 1.0)
+    return (x.amax(dim=1) - x.amin(dim=1)) * (y.amax(dim=1) - y.amin(dim=1))
 
 
 # --- the device step (culling.py:63-97) ------------------------------------

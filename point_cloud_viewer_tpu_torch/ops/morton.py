@@ -113,6 +113,19 @@ def morton_encode(cells: np.ndarray) -> np.ndarray:
     )
 
 
+# morton.py:123-132, unchanged.
+def morton_decode(codes: np.ndarray, depth: int) -> np.ndarray:
+    """(N,) uint64 -> (N, 3) uint32 cell coords (inverse of morton_encode)."""
+    out = np.zeros((len(codes), 3), dtype=np.uint32)
+    codes = codes.astype(np.uint64)
+    for bit in range(depth):
+        for axis, shift in ((0, 2), (1, 1), (2, 0)):
+            out[:, axis] |= (
+                ((codes >> np.uint64(3 * bit + shift)) & np.uint64(1)) << np.uint32(bit)
+            ).astype(np.uint32)
+    return out
+
+
 def split_u64(codes: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """u64 -> (hi, lo) uint32 pair for device-side lexicographic sorting."""
     return (codes >> np.uint64(32)).astype(np.uint32), codes.astype(np.uint32)

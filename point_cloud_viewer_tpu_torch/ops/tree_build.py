@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..core.constants import MAX_POINTS_PER_NODE
+from ..device import resolve_device
 from . import morton
 # _bound_levels lives beside the kernel that replaced it on the card; it is
 # re-exported here, where the JAX package has it.
@@ -44,6 +45,8 @@ from .scan_cuda import scan_1d
 
 # Segment positions and permutations are int32, as in the JAX package.
 _MAX_N = 2**31 - 1
+# Flips bit 63 of an int64 key: signed order then is unsigned order.
+_SIGN_BIT = -(1 << 63)
 
 
 def _assign_and_promote(codes: torch.Tensor, depth: int, max_split_level: int,
@@ -80,6 +83,23 @@ def _check_codes(codes: torch.Tensor) -> None:
                          "are int32")
 
 
+def _sort_real(codes: torch.Tensor, n_real: Optional[int]):
+    """A stable sort of rows [0, n_real) (default: every row) -> (sorted
+    codes, int32 permutation).  Pad rows [n_real:] stay at the tail,
+    unsorted and mapping to themselves: an int64 sentinel cannot sort last
+    (a real code may be 2^63 - 1), so they are never sorted or read."""
+    n = codes.shape[0]
+    n_real = n if n_real is None else int(n_real)
+    if not 0 <= n_real <= n:
+        raise ValueError(f"n_real = {n_real} outside [0, {n}]")
+    vals, perm = torch.sort(codes[:n_real], stable=True)
+    if n_real == n:
+        return vals, perm.to(torch.int32)
+    return (torch.cat([vals, codes[n_real:]]),
+            torch.cat([perm, torch.arange(n_real, n, device=codes.device)]
+                      ).to(torch.int32))
+
+
 def build_tree_device_codes(
     codes: torch.Tensor,  # (N,) int64 Morton codes (unsorted, < 2^63)
     depth: int,
@@ -87,15 +107,19 @@ def build_tree_device_codes(
     max_points_per_node: int = MAX_POINTS_PER_NODE,
     root_level: int = 0,
     stop_level: int = 0,
+    n_real: Optional[int] = None,  # rows [n_real:] are pad rows
 ):
     """tree_build.py:439-465: -> (order int32 sorted -> original index,
-    final u8, leaf u8), all in code-sorted order."""
+    final u8, leaf u8), all in code-sorted order.  Pad rows [n_real:]
+    (default: none) stay at the tail, as in build_tree_device_codes_grouped,
+    and take the leaf and final levels of the JAX package's sentinel rows
+    (K6's pad-row rule)."""
     _check_codes(codes)
-    sorted_codes, perm = torch.sort(codes, stable=True)
+    sorted_codes, idx = _sort_real(codes, n_real)
     leaf, cur = _assign_and_promote(sorted_codes, depth, max_split_level,
                                     max_points_per_node, root_level,
-                                    stop_level)
-    return perm.to(torch.int32), cur, leaf
+                                    stop_level, n_real=n_real)
+    return idx, cur, leaf
 
 
 class DeviceTreeResult(NamedTuple):
@@ -186,9 +210,7 @@ def build_tree_device_codes_grouped(
             torch.zeros(extras_cap, dtype=torch.uint8, device=dev),
             torch.zeros((), dtype=torch.int32, device=dev), e32, e8, e8,
         )
-    vals, perm = torch.sort(codes[:n_real], stable=True)
-    sorted_codes = torch.cat([vals, codes[n_real:]])
-    idx = torch.cat([perm, torch.arange(n_real, n, device=dev)]).to(torch.int32)
+    sorted_codes, idx = _sort_real(codes, n_real)
     leaf, cur = _assign_and_promote(sorted_codes, depth, max_split_level,
                                     max_points_per_node, root_level,
                                     stop_level, n_real=n_real)
@@ -236,16 +258,20 @@ def build_tree_device_codes_grouped(
                            leaf)
 
 
-def upload_codes(codes_u64, device: torch.device) -> torch.Tensor:
+def upload_codes(codes_u64, device: torch.device,
+                 n_real: Optional[int] = None) -> torch.Tensor:
     """Host uint64 Morton codes (< 2^63) -> int64 tensor on `device`.
 
-    On CUDA the codes go through a pinned staging buffer and a
-    non-blocking copy on the current stream: a pageable `.to("cuda")`
-    would hold the host until the copy ends.  The caching host allocator
-    keeps the staging block until that copy has run."""
+    Rows [n_real:] (default: none) are pad rows: their bits are uploaded
+    as they are, unchecked (the JAX sentinels become -1).  On CUDA the
+    codes go through a pinned staging buffer and a non-blocking copy on
+    the current stream: a pageable `.to("cuda")` would hold the host until
+    the copy ends.  The caching host allocator keeps the staging block
+    until that copy has run."""
+    codes = np.ascontiguousarray(codes_u64, dtype=np.uint64)
+    morton.check_codes(codes[:n_real])
     if device.type != "cuda":
-        return morton.codes_to_tensor(codes_u64, device)
-    codes = morton.check_codes(codes_u64)
+        return torch.from_numpy(codes.view(np.int64)).to(device)
     staging = torch.empty(len(codes), dtype=torch.int64, pin_memory=True)
     staging.numpy()[:] = codes.view(np.int64)
     return staging.to(device, non_blocking=True)
@@ -278,6 +304,136 @@ def tree_codes_grouped_on_device(
         max_split_level, max_points_per_node=max_points_per_node,
         root_level=root_level, stop_level=stop_level, extras_cap=extras_cap,
     )
+
+
+# --- the padded entries (tree_build.py:468-556, 663-698) -----------------
+#
+# The JAX package pads variable-size device calls with a size ladder so
+# that XLA compiles one program a size bucket; PyTorch compiles nothing a
+# shape, so the port's own callers take the unpadded entries above.  These
+# keep the JAX entries' contract for callers that hold JAX's u32 code
+# halves: the same ladder (copied below, unchanged), outputs of the padded
+# length.  The sentinel rows cannot be int64 codes that sort last (a real
+# code may be 2^63 - 1), so the device tensor holds the real rows and the
+# pad rows joined to -1, and the core is told n_real = n: it sorts and
+# reads only the real rows, and K6's pad-row rule gives the pad rows the
+# leaf levels that JAX's sentinels get.
+
+# tree_build.py:489-533, unchanged.
+_PAD_MIN = 1 << 16
+
+
+def pad_codes_pow2(hi, lo):
+    """Host numpy u32 code halves -> (padded hi, padded lo, real n).
+
+    Padded sizes come from the {2^k, 3*2^(k-1)} bucket ladder (steps of
+    1.33x/1.5x) rather than pure powers of two: pad bytes ride the full
+    host->device upload (the measured binding phase of the streaming
+    device path on relayed links), and the extra mid bucket cuts the
+    average upload waste from ~1.39x to ~1.2x for at most 2x compile
+    variety.  Sentinel fill is 0xFFFFFFFF in BOTH halves: real hi words
+    carry only Morton bits 32..62 (bit 31 clear), so sentinels sort
+    strictly after every real row and share no code prefix with one."""
+    import numpy as np
+
+    n = int(hi.shape[0])
+    if n:
+        p = 1 << (n - 1).bit_length()  # next pow2 >= n
+        mid = 3 * (p >> 2)             # 1.5 * previous pow2
+        n_pad = max(_PAD_MIN, mid if n <= mid else p)
+    else:
+        n_pad = 0
+    if n_pad > n:
+        fill = np.full(n_pad - n, 0xFFFFFFFF, dtype=np.uint32)
+        hi = np.concatenate([hi, fill])
+        lo = np.concatenate([lo, fill])
+    return hi, lo, n
+
+
+def pad_rows_pow2(arr, floor: int = 512):
+    """Pad a host array's leading axis to the next power of two (>= floor)
+    by repeating row 0 — the compile-bucketing policy for per-row device
+    kernels (one compiled program per size bucket, not per distinct node
+    point count).  Row 0's duplicates are inert for pure per-row kernels;
+    the caller slices the result back to real_n.  Returns (padded, real_n)."""
+    import numpy as np
+
+    n = int(arr.shape[0])
+    n_pad = max(floor, 1 << (n - 1).bit_length()) if n else 0
+    if n_pad > n:
+        pad = np.broadcast_to(arr[:1], (n_pad - n,) + arr.shape[1:])
+        arr = np.concatenate([arr, pad])
+    return arr, n
+
+
+def _padded_codes(hi, lo, device) -> tuple:
+    """JAX's host u32 code halves -> (int64 codes of pad_codes_pow2's
+    padded length on `device`, launched without a host sync; the real n).
+    `device=None` is the card, as JAX's None is its default device."""
+    hi, lo, n = pad_codes_pow2(np.asarray(hi, dtype=np.uint32),
+                               np.asarray(lo, dtype=np.uint32))
+    dev = resolve_device("cuda" if device is None else device)
+    return upload_codes(morton.join_u64(hi, lo), dev, n_real=n), n
+
+
+def tree_codes_on_device_padded(
+    hi, lo, depth, max_split_level,
+    max_points_per_node: int = MAX_POINTS_PER_NODE,
+    root_level: int = 0, stop_level: int = 0, device=None,
+):
+    """build_tree_device_codes over pad_codes_pow2-padded host codes
+    (tree_build.py:536-556).
+
+    Returns (idx int32, final u8, leaf u8) of the PADDED length on
+    `device`, UNFORCED (the call returns without waiting for the card),
+    plus the real n; the caller slices [:n].  Rows [0, n) equal the
+    unpadded call's bit for bit; the pad rows hold what JAX's contract
+    leaves to it (here: idx the pad rows' own indices, final and leaf the
+    levels of JAX's sentinel run)."""
+    codes, n = _padded_codes(hi, lo, device)
+    idx, final, leaf = build_tree_device_codes(
+        codes, depth, max_split_level, max_points_per_node, root_level,
+        stop_level, n_real=n)
+    return idx, final, leaf, n
+
+
+def tree_codes_grouped_on_device_padded(
+    hi, lo, depth, max_split_level,
+    max_points_per_node: int = MAX_POINTS_PER_NODE,
+    root_level: int = 0, stop_level: int = 0, device=None,
+    extras_cap: int = None,
+):
+    """build_tree_device_codes_grouped over pad_codes_pow2-padded host
+    codes (tree_build.py:663-686).
+
+    Returns (GroupedExchange, real n); every tensor is UNFORCED and of the
+    padded length (level_counts' last bin counts the pad rows).  The
+    caller fetches order2[:n] etc. and touches the classic per-point
+    arrays only on extras overflow.  extras_cap defaults to max(512,
+    padded length >> 6), as at tree_build.py:682; tests set it to force
+    the overflow."""
+    codes, n = _padded_codes(hi, lo, device)
+    if extras_cap is None:
+        extras_cap = max(512, codes.shape[0] >> 6)
+    out = build_tree_device_codes_grouped(
+        codes, n, depth, max_split_level, max_points_per_node, root_level,
+        stop_level, extras_cap)
+    return out, n
+
+
+def sort_codes_device(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """Stable sort of split Morton codes on their tensors' device -> int32
+    permutation (sorted -> original index), as tree_build.py:689-698.
+
+    hi and lo hold the u32 halves (int64, or int32 bit patterns: each is
+    masked to 32 bits).  The key is the joined code with bit 63 flipped,
+    so the signed sort keeps unsigned order and JAX's 0xFFFFFFFF sentinel
+    rows sort after every real row, as there; one stable torch.sort, as
+    argsort_codes_on_device."""
+    mask = 0xFFFFFFFF
+    key = ((hi.to(torch.int64) & mask) << 32) | (lo.to(torch.int64) & mask)
+    _, perm = torch.sort(key ^ _SIGN_BIT, stable=True)
+    return perm.to(torch.int32)
 
 
 def argsort_codes_on_device(codes_u64, device):

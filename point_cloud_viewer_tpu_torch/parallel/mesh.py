@@ -21,6 +21,10 @@ from ..device import resolve_device
 
 Mesh = Tuple[torch.device, ...]
 
+# The JAX mesh's axis name (mesh.py:11).  The port's mesh is a tuple and
+# names no axis; the constant stays for callers that name one.
+SHARD_AXIS = "shard"
+
 
 def make_mesh(
     n_devices: Optional[int] = None,

@@ -1,6 +1,6 @@
 """Minimal protobuf (proto3) wire-format encoder/decoder (copy of
-point_cloud_viewer_tpu/protos/pbwire.py:17-152, trimmed to what
-protos/meta.py calls).
+point_cloud_viewer_tpu/protos/pbwire.py:17-157, trimmed to what
+protos/meta.py calls, and the public names of the original).
 
 Implemented from the protobuf wire spec rather than generated code so the
 framework has zero codegen steps and full control over byte-level output.
@@ -13,7 +13,7 @@ reference's rust-protobuf readers.
 from __future__ import annotations
 
 import struct
-from typing import Iterator, List, Tuple
+from typing import Dict, Iterator, List, Tuple
 
 WIRETYPE_VARINT = 0
 WIRETYPE_FIXED64 = 1
@@ -86,6 +86,11 @@ class FieldWriter:
         if value != 0.0:
             self._parts.append(tag(field, WIRETYPE_FIXED64) + struct.pack("<d", value))
 
+    # pbwire.py:88-90, unchanged.
+    def float32(self, field: int, value: float) -> None:
+        if value != 0.0:
+            self._parts.append(tag(field, WIRETYPE_FIXED32) + struct.pack("<f", value))
+
     def bytes_field(self, field: int, value: bytes) -> None:
         if value:
             self._parts.append(
@@ -104,6 +109,24 @@ class FieldWriter:
 
     def finish(self) -> bytes:
         return b"".join(self._parts)
+
+
+# pbwire.py:112-126, unchanged.
+def iter_fields(buf: bytes) -> Iterator[Tuple[int, int, object]]:
+    """Yield (field_number, wire_type, value) over a serialized message.
+
+    Varint fields yield ints, fixed64 yields float (double), fixed32 yields
+    float, and length-delimited fields yield bytes.  Raw fixed values are
+    also retrievable by re-packing; callers that need fixed64-as-int should
+    use `iter_fields_raw`.
+    """
+    for field, wire_type, raw in iter_fields_raw(buf):
+        if wire_type == WIRETYPE_FIXED64:
+            yield field, wire_type, struct.unpack("<d", raw)[0]
+        elif wire_type == WIRETYPE_FIXED32:
+            yield field, wire_type, struct.unpack("<f", raw)[0]
+        else:
+            yield field, wire_type, raw
 
 
 def iter_fields_raw(buf: bytes) -> Iterator[Tuple[int, int, object]]:
@@ -131,3 +154,9 @@ def iter_fields_raw(buf: bytes) -> Iterator[Tuple[int, int, object]]:
             pos += length
         else:
             raise ValueError(f"unsupported wire type {wire_type} (field {field})")
+
+
+# pbwire.py:155-157, unchanged.
+def parse_scalar_fields(buf: bytes) -> Dict[int, object]:
+    """Parse a message into {field_number: last_value} (proto3 last-wins)."""
+    return {field: value for field, _, value in iter_fields(buf)}

@@ -2,11 +2,12 @@
 `timed_phase`, and the CLIs' parsers `parse_key_val` and `parse_aabb` (copy
 of point_cloud_viewer_tpu/utils/progress.py:13-50, 51-81 and 96-115;
 `build_octree(progress=True)` passes `echo`, the x-ray build draws a
-`ProgressBar`)."""
+`ProgressBar`), and `torch_trace`, the twin of its `jax_trace` (:84-93)."""
 
 from __future__ import annotations
 
 import contextlib
+import os
 import sys
 import threading
 import time
@@ -83,6 +84,39 @@ def timed_phase(phase_times: Optional[dict], key: str,
             phase_times[key] = (
                 phase_times.get(key, 0.0) + time.perf_counter() - t0
             )
+
+
+@contextlib.contextmanager
+def torch_trace(log_dir: Optional[str]) -> Iterator[None]:
+    """Wrap a region in a torch.profiler trace when log_dir is given: the
+    twin of the JAX package's `jax_trace` (progress.py:84-93), which wraps
+    it in a jax.profiler trace.  Without log_dir it does nothing.
+
+    The profile records CPU activity and, where torch sees a card, CUDA
+    activity (kernels, memcpys, memsets).  On exit, also when the region
+    raises, one Chrome trace is written into log_dir (created if absent)
+    as `trace.<pid>.<ns>.json`; a failure to write it raises."""
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir,
+                        f"trace.{os.getpid()}.{time.time_ns()}.json")
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(path)
+        if not os.path.isfile(path):
+            raise OSError(f"torch_trace: no trace written to {path}")
 
 
 def parse_key_val(s: str):

@@ -96,10 +96,9 @@ def test_host_build_matches_jax(tmp_path, route, n):
 
 @pytest.fixture
 def no_native(monkeypatch):
-    """Both packages' host libraries unloaded (test_torch_host_copies.py's
-    pattern): every native entry point returns None."""
-    monkeypatch.setattr(native, "lib", lambda: None)
-    monkeypatch.setattr(jax_native, "lib", lambda: None)
+    """Both packages' host libraries switched off by PCV_DISABLE_NATIVE:
+    every native entry point returns None."""
+    monkeypatch.setenv("PCV_DISABLE_NATIVE", "1")
     assert not native.available() and not jax_native.available()
 
 

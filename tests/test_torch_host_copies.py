@@ -10,8 +10,11 @@ hooks and progress bar behave alike; the viewers' and web servers' copies
 (camera, input, terrain, the GL modules, the servers) are their
 originals' text, the shaders, both web clients and the SDL stub their
 bytes, and the copies that differ (the GL viewer, the SDL shell, the web
-viewer CLI) differ only where named.  One parametrised
+viewer CLI) differ only where named; the public names added to trimmed
+copies are their originals' text and behave alike.  One parametrised
 test per module."""
+
+import os
 
 import numpy as np
 import pytest
@@ -115,6 +118,7 @@ def _native_cases():
     u16 = rng.integers(0, 65536, (n, 3), dtype=np.uint16)
     pt_min = rng.random((n, 3)) * 10.0
     pt_edge = rng.random(n) * 5.0
+    zero_edges = np.where(np.arange(n) % 97 == 0, 0.0, pt_edge)
     meta = _octree_meta_bytes(seed=RNG_SEED)
     cases = {
         "quantize_morton": lambda m: m.quantize_morton(
@@ -130,6 +134,17 @@ def _native_cases():
                                 (u8, u16, pos, final, pos[:, :1].copy())],
         "decode_positions": lambda m: [
             m.decode_positions(e, pt_min, pt_edge) for e in (u8, u16)],
+        # Per-point and broadcast cubes, zero edges, NaN and +-inf
+        # positions; a dtype other than u8/u16 gives None.
+        "encode_positions_u8": lambda m: [
+            m.encode_positions(pos, pt_min, zero_edges, np.uint8),
+            m.encode_positions(pos, np.array([-20.0, -20.0, -20.0]), 100.0,
+                               np.uint8)],
+        "encode_positions_u16": lambda m: [
+            m.encode_positions(pos, pt_min, zero_edges, np.uint16),
+            m.encode_positions(pos, np.array([-20.0, -20.0, -20.0]), 100.0,
+                               np.uint16),
+            m.encode_positions(pos, pt_min, pt_edge, np.float32)],
         "cull_lod_select": lambda m: [
             m.cull_lod_select(*_cull_args(4000, RNG_SEED, dt), dtype=dt,
                               max_out=mo)
@@ -186,7 +201,7 @@ def _flatten(out):
 
 NATIVE_NAMES = [
     "cull_lod_heap", "cull_lod_select", "counting_argsort", "decode_positions",
-    "gather_encode_float32", "gather_encode_float64",
+    "encode_positions_u16", "encode_positions_u8", "gather_encode_float32", "gather_encode_float64",
     "gather_encode_uint16", "gather_encode_uint8", "group_levels_full",
     "morton_encode", "parse_octree_meta", "quantize_morton",
     "radix_argsort_u64", "take_rows", "tree_levels",
@@ -209,12 +224,14 @@ def test_native_function_bit_equal_to_jax(name):
 
 
 def test_native_library_has_only_the_ports_functions():
+    """The position encode is in (native.encode_positions calls it); the
+    web decode, which no Python wrapper calls, is not; ABI 5 keeps a
+    library built before the encode came in from loading."""
     h = native.lib()
-    for fn in ("decode_to_f32_relative", "encode_positions_u8",
-               "encode_positions_u16"):
-        assert not hasattr(h, fn)
-    assert hasattr(h, "tree_levels")
-    assert h.pcv_native_abi_version() == 4
+    assert not hasattr(h, "decode_to_f32_relative")
+    for fn in ("encode_positions_u8", "encode_positions_u16", "tree_levels"):
+        assert hasattr(h, fn)
+    assert h.pcv_native_abi_version() == 5
 
 
 # --- protos, codec, node_id ---------------------------------------------------
@@ -1079,9 +1096,9 @@ def test_tool_copies_are_their_originals(path):
     _assert_unchanged_copy(path)
 
 
-# Parts added to trimmed copies for the tools, as (path, first line, end):
-# the text from the first line up to `end` (None: the file's end) is the
-# same in the copy and the original.
+# Parts added to trimmed copies, as (path, first line, end): the text from
+# the first line through `end` (None: the file's end) is the same in the
+# copy and the original.
 _ADDED_PARTS = [
     ("io/ply.py", "# Inverse of _PLY_DTYPES", "\n}\n"),
     ("io/ply.py", "class PlyStreamWriter:", None),
@@ -1091,6 +1108,28 @@ _ADDED_PARTS = [
     ("core/attributes.py", "    def from_array(cls", "\n\n\n"),
     ("core/attributes.py", "_FROM_NP", "\n}\n"),
     ("core/points_batch.py", "    def data_types(self)", "\n\n"),
+    # The public names the trimmed copies had left out.
+    ("octree/node_id.py", "    def parent(self)", "node = node.parent()\n"),
+    ("octree/node_id.py", "def child_index_from_cube(", "\n    )\n"),
+    ("octree/node_id.py", "MAX_VECTOR_LEVEL = 21", "\n"),
+    ("octree/node_id.py", "def pack_ids(", "\n    ]\n"),
+    ("core/points_batch.py", "    def append(self", "\n\n"),
+    ("core/points_batch.py", "    def get_attribute(self", ".get(name)\n"),
+    ("core/attributes.py", "    @property\n    def size_bytes(self)", "\n\n"),
+    ("io/node_io.py", "    def number_of_points(self", "\n\n\n"),
+    ("native/__init__.py", "def disabled():", "\n\n\n"),
+    ("native/__init__.py", "    if _disabled or os.environ.get(",
+     "        return None\n"),
+    ("native/__init__.py", "def encode_positions(", "\n\n\n"),
+    ("native/pcv_native.cpp", "void encode_positions_u8(",
+     "void decode_positions_u8("),
+    ("ops/morton.py", "def morton_decode(", "\n\n\n"),
+    ("ops/codec.py", "def encode_plain(", None),
+    ("protos/pbwire.py", "    def float32(self", "\n\n"),
+    ("protos/pbwire.py", "def iter_fields(buf", "\n\n\n"),
+    ("protos/pbwire.py", "def parse_scalar_fields(", None),
+    ("ops/tree_build.py", "_PAD_MIN = 1 << 16", "    return arr, n\n"),
+    ("parallel/mesh.py", 'SHARD_AXIS = "shard"', "\n"),
 ]
 
 
@@ -1101,5 +1140,173 @@ def test_added_parts_are_their_originals(path, first, end):
     texts = []
     for text in _texts(path):
         i = text.index(first)
-        texts.append(text[i:] if end is None else text[i:text.index(end, i)])
+        texts.append(text[i:] if end is None else
+                     text[i:text.index(end, i) + len(end)])
     assert texts[0] == texts[1] and len(texts[0]) > len(first)
+
+
+# --- the added public names behave as the originals ----------------------
+
+
+def _case_node_id_algebra(J, P):
+    rng = np.random.default_rng(RNG_SEED + 40)
+    levels = rng.integers(0, 22, 300)
+    paths = [int(rng.integers(0, 8 ** int(l))) if l else 0 for l in levels]
+    assert P.MAX_VECTOR_LEVEL == J.MAX_VECTOR_LEVEL == 21
+    got = P.pack_ids(levels, np.array(paths, dtype=np.uint64))
+    want = J.pack_ids(levels, np.array(paths, dtype=np.uint64))
+    assert [n.value for n in got] == [n.value for n in want]
+    for g, w in zip(got, want):
+        assert str(g.parent()) == str(w.parent())
+        assert g.child_index_in_parent() == w.child_index_in_parent()
+        assert [a.value for a in g.ancestors()] == [
+            a.value for a in w.ancestors()]
+
+
+def _case_child_index_from_cube(J, P):
+    from point_cloud_viewer_tpu.math.geometry import Cube as JCube
+    from point_cloud_viewer_tpu_torch.math.geometry import Cube as PCube
+
+    rng = np.random.default_rng(RNG_SEED + 41)
+    mn, edge = rng.random(3) * 10.0 - 5.0, 8.0
+    points = mn + rng.random((5000, 3)) * edge
+    points[:500] = mn + edge / 2.0  # on the centre: not greater
+    _same(P.child_index_from_cube(PCube(mn, edge), points),
+          J.child_index_from_cube(JCube(mn, edge), points))
+
+
+def _case_points_batch(J, P):
+    from point_cloud_viewer_tpu.core.points_batch import PointsBatch as JB
+    from point_cloud_viewer_tpu_torch.core.points_batch import PointsBatch as PB
+
+    rng = np.random.default_rng(RNG_SEED + 42)
+    parts = [(rng.random((n, 3)), rng.integers(0, 256, (n, 3), np.uint8),
+              rng.random(n).astype(np.float32)) for n in (700, 0, 300)]
+    got = want = None
+    for pos, rgb, inten in parts:
+        attrs = {"color": rgb, "intensity": inten}
+        pb, jb = PB(pos, dict(attrs)), JB(pos, dict(attrs))
+        got = pb if got is None else got.append(pb)
+        want = jb if want is None else want.append(jb)
+    _same(got.position, want.position)
+    for name in ("color", "intensity", "absent"):
+        g, w = got.get_attribute(name), want.get_attribute(name)
+        assert (g is None) == (w is None)
+        if w is not None:
+            _same(g, w)
+
+
+def _case_size_bytes(J, P):
+    from point_cloud_viewer_tpu.core.attributes import AttributeDataType as JT
+    from point_cloud_viewer_tpu_torch.core.attributes import (
+        AttributeDataType as PT)
+
+    assert [(t.name, t.size_bytes) for t in PT if t != PT.INVALID] == [
+        (t.name, t.size_bytes) for t in JT if t != JT.INVALID]
+
+
+def _case_number_of_points(J, P, tmp_path):
+    from point_cloud_viewer_tpu.io import node_io as jio
+    from point_cloud_viewer_tpu_torch.io import node_io as pio
+
+    rng = np.random.default_rng(RNG_SEED + 43)
+    n = 20_000
+    batch = JaxBatch(position=rng.random((n, 3)) * 30.0, attributes={
+        "color": rng.integers(0, 256, (n, 3), np.uint8)})
+    jax_build(str(tmp_path / "rgb"), 0.01, batch, use_device=False)
+    jax_build(str(tmp_path / "int"), 0.01, JaxBatch(
+        position=batch.position,
+        attributes={"intensity": rng.random(n).astype(np.float32)}),
+        use_device=False)
+    for sub in ("rgb", "int"):
+        got = pio.OnDiskDataProvider(str(tmp_path / sub))
+        want = jio.OnDiskDataProvider(str(tmp_path / sub))
+        names = sorted(f.split(".")[0] for f in os.listdir(tmp_path / sub)
+                       if f.endswith(".xyz"))
+        assert [got.number_of_points(x) for x in names] == [
+            want.number_of_points(x) for x in names]
+        assert sum(got.number_of_points(x) for x in names) >= n
+        with pytest.raises(pio.NodeNotFound):
+            got.number_of_points("r77777")
+
+
+def _case_morton_decode(J, P):
+    from point_cloud_viewer_tpu.ops import morton as jm
+    from point_cloud_viewer_tpu_torch.ops import morton as pm
+
+    rng = np.random.default_rng(RNG_SEED + 44)
+    codes = rng.integers(0, 2 ** 63, 20_000, dtype=np.uint64)
+    for depth in (21, 10, 0):
+        _same(pm.morton_decode(codes, depth), jm.morton_decode(codes, depth))
+    cells = rng.integers(0, 2 ** 21, (1000, 3)).astype(np.uint32)
+    _same(pm.morton_decode(pm.morton_encode(cells), 21), cells)
+
+
+def _case_plain_codec(J, P):
+    from point_cloud_viewer_tpu.ops import codec as jc
+    from point_cloud_viewer_tpu_torch.ops import codec as pc
+
+    pos = np.random.default_rng(RNG_SEED + 45).random((999, 3)) * 1e6
+    for src in (pos, pos.astype(np.float32), pos.astype(">f8")):
+        _same(pc.encode_plain(src), jc.encode_plain(src))
+        enc = jc.encode_plain(src)
+        _same(pc.decode_plain(enc), jc.decode_plain(enc))
+
+
+def _case_pbwire(J, P):
+    from point_cloud_viewer_tpu.protos import pbwire as jw
+    from point_cloud_viewer_tpu_torch.protos import pbwire as pw
+
+    def message(w):
+        fw = w.FieldWriter()
+        fw.varint(1, 7)
+        for field, value in ((2, 0.5), (3, 0.0), (4, -1.25e-3), (5, 3e38),
+                             (6, float("inf")), (2, 9.0)):
+            fw.float32(field, value)
+        fw.double(8, 2.5)
+        fw.string(9, "s2")
+        return fw.finish()
+
+    raw = message(pw)
+    assert raw == message(jw)
+    for buf in (raw, _octree_meta_bytes(seed=RNG_SEED + 46)):
+        assert list(pw.iter_fields(buf)) == list(jw.iter_fields(buf))
+        assert pw.parse_scalar_fields(buf) == jw.parse_scalar_fields(buf)
+    assert pw.parse_scalar_fields(raw)[2] == 9.0  # last one wins
+
+
+def _case_shard_axis(J, P):
+    from point_cloud_viewer_tpu.parallel import mesh as jmesh
+    from point_cloud_viewer_tpu_torch.parallel import mesh as pmesh
+
+    assert pmesh.SHARD_AXIS == jmesh.SHARD_AXIS == "shard"
+
+
+_ADDED_NAMES = {
+    "node_id algebra": _case_node_id_algebra,
+    "child_index_from_cube": _case_child_index_from_cube,
+    "PointsBatch.append/get_attribute": _case_points_batch,
+    "AttributeDataType.size_bytes": _case_size_bytes,
+    "OnDiskDataProvider.number_of_points": _case_number_of_points,
+    "morton_decode": _case_morton_decode,
+    "encode_plain/decode_plain": _case_plain_codec,
+    "pbwire float32/iter_fields/parse_scalar_fields": _case_pbwire,
+    "SHARD_AXIS": _case_shard_axis,
+}
+
+
+@pytest.mark.parametrize("case", sorted(_ADDED_NAMES))
+def test_added_public_names_behave_as_jax(case, tmp_path):
+    """Each public name added to a trimmed copy against the original on
+    seeded inputs (the native encode is in NATIVE_NAMES, the padded
+    entries and the culling blocks in tests/test_torch_api.py)."""
+    import inspect
+
+    from point_cloud_viewer_tpu.octree import node_id as J
+    from point_cloud_viewer_tpu_torch.octree import node_id as P
+
+    fn = _ADDED_NAMES[case]
+    if "tmp_path" in inspect.signature(fn).parameters:
+        fn(J, P, tmp_path)
+    else:
+        fn(J, P)
