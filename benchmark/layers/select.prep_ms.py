@@ -1,0 +1,14 @@
+"""select.prep_ms: DeviceCullSession.step's host prep, the frustum's axes and
+projections and their pad (the program's span "select.prep"), ms a frame of
+the traced window (host clock)."""
+
+
+def read(ctx: dict):
+    try:
+        from point_cloud_viewer_tpu_torch.utils.progress import span_totals
+    except ImportError:  # a program without the span table
+        return None
+    entry = span_totals().get("select.prep")
+    if entry is None or not ctx.get("traced_units"):
+        return None
+    return 1e3 * entry[1] / ctx["traced_units"]

@@ -1,0 +1,13 @@
+"""select.upload_ms: the step's four copies to the card (the program's span
+"select.upload"), ms a frame of the traced window (host clock)."""
+
+
+def read(ctx: dict):
+    try:
+        from point_cloud_viewer_tpu_torch.utils.progress import span_totals
+    except ImportError:  # a program without the span table
+        return None
+    entry = span_totals().get("select.upload")
+    if entry is None or not ctx.get("traced_units"):
+        return None
+    return 1e3 * entry[1] / ctx["traced_units"]

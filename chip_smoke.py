@@ -1324,42 +1324,37 @@ def session_card_vs_cpu(name, mins, edges, num_points, center, diag):
 
 
 def session_split(frusta, card) -> None:
-    """Where one step's time goes (culling.py DeviceCullSession.step,
-    piece by piece, host clock with a sync after each), median over the
-    orbit, plus CUDA-event times of the kernel and the sort."""
+    """Where one step's time goes: the orbit through DeviceCullSession.step
+    under torch.profiler, read from the session's own spans (select.prep,
+    .upload, .launch, .fetch; host clock, mean a frame), plus CUDA-event
+    times of the kernel and the sort on the last frame."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from point_cloud_viewer_tpu_torch.ops import cull_cuda as CC
     from point_cloud_viewer_tpu_torch.ops import culling as C
+    from point_cloud_viewer_tpu_torch.utils import progress
 
+    progress.reset_span_totals()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for f in frusta:
+            card.step(f)
+    totals = progress.span_totals()
+    parts = ("select.prep", "select.upload", "select.launch", "select.fetch")
+    if any(totals.get(k, [0])[0] != len(frusta) for k in parts):
+        raise AssertionError(f"session spans: {totals}, {len(frusta)} frames")
+    f = frusta[-1]
+    args = [card._put(a) for a in
+            (f.clip_from_query.astype(np.float32),
+             *card._pad(*C.frustum_axes_and_projections(f)))]
     table = (card._mins, card._edges, card._num_points)
-    parts = {"host prep": [], "upload": [], "kernel": [], "sort": [],
-             "fetch": []}
-    for f in frusta:
-        t0 = time.perf_counter()
-        padded = card._pad(*C.frustum_axes_and_projections(f))
-        t1 = time.perf_counter()
-        args = [card._put(a) for a in
-                (f.clip_from_query.astype(np.float32), *padded)]
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        sizes, visible, priority = CC.cull_lod(*args, *table)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        order = torch.sort(-priority, stable=True).indices.to(torch.int32)
-        torch.cuda.synchronize()
-        t4 = time.perf_counter()
-        for t in (order, sizes, visible):
-            t.cpu().numpy()
-        t5 = time.perf_counter()
-        for key, a, b in zip(parts, (t0, t1, t2, t3, t4), (t1, t2, t3, t4,
-                                                           t5)):
-            parts[key].append(b - a)
+    _, _, priority = CC.cull_lod(*args, *table)
     kernel_ms = cuda_ms(lambda: CC.cull_lod(*args, *table))
     sort_ms = cuda_ms(lambda: torch.sort(-priority, stable=True))
-    log("session split, 1M table, orbit medians (host clock, ms): "
-        + ", ".join(f"{k} {statistics.median(v) * 1e3:.4f}"
-                    for k, v in parts.items())
+    log("session split, 1M table, orbit means of the session's spans (host "
+        "clock, ms): " + ", ".join(
+            f"{k.split('.')[1]} {totals[k][1] / totals[k][0] * 1e3:.4f}"
+            for k in parts)
         + f"; last frame by CUDA events: kernel {kernel_ms:.4f} ms, sort "
         f"{sort_ms:.4f} ms")
 

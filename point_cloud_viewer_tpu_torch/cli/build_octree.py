@@ -21,10 +21,26 @@ import json
 import sys
 from typing import Optional
 
+from ..utils.progress import timed_phase
+
 
 def main(argv=None, phase_times: Optional[dict] = None) -> int:
     """`phase_times`: when given, accumulates the build's wall seconds per
-    phase (they are printed either way)."""
+    phase (they are printed either way), and under "total" the wall time of
+    the whole command."""
+    times = {} if phase_times is None else phase_times
+    with timed_phase(times, "total"):
+        result, output_directory = _build(argv, times)
+        print(
+            f"Built octree with {result.num_points} points in "
+            f"{len(result.nodes)} nodes (depth cap {result.depth_cap}) "
+            f"at {output_directory}"
+        )
+    print("phase seconds: " + json.dumps(times))
+    return 0
+
+
+def _build(argv, times: dict):
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("input", help="PLY file to parse for points")
     parser.add_argument("--output_directory", required=True)
@@ -96,7 +112,6 @@ def main(argv=None, phase_times: Optional[dict] = None) -> int:
 
         os.environ["PCV_WRITE_THREADS"] = str(args.num_threads)
 
-    times = {} if phase_times is None else phase_times
     if args.streaming:
         from ..io.ply import PlyReader
         from ..octree.streaming import build_octree_streaming
@@ -130,13 +145,7 @@ def main(argv=None, phase_times: Optional[dict] = None) -> int:
             phase_times=times,
             device=args.device,
         )
-    print(
-        f"Built octree with {result.num_points} points in "
-        f"{len(result.nodes)} nodes (depth cap {result.depth_cap}) "
-        f"at {args.output_directory}"
-    )
-    print("phase seconds: " + json.dumps(times))
-    return 0
+    return result, args.output_directory
 
 
 if __name__ == "__main__":

@@ -288,7 +288,8 @@ def build_octree(
     # --- 4. encode + write -------------------------------------------------
     with phase("encode+write"):
         nodes = _write_levels(
-            output_directory, final_nodes, batch, order, root_cube, resolution
+            output_directory, final_nodes, batch, order, root_cube, resolution,
+            phase_times=phase_times,
         )
         if deep:
             nodes.extend(deep_nodes)
@@ -1099,6 +1100,7 @@ def _write_levels(
     root_cube: Cube,
     resolution: float,
     prefix: Optional[NodeId] = None,
+    phase_times: Optional[dict] = None,
 ) -> List[Tuple[NodeId, int]]:
     """Encode per level (one encoding per level) and write node files.
 
@@ -1112,7 +1114,12 @@ def _write_levels(
     be the prefix node's own cube, and written ids become global
     (prefix.level + level) — the deep-subtree writer for trees past the
     u64 code budget (cube subdivision and per-level encodings stay exact:
-    both are powers-of-two divisions of the same f64 root edge)."""
+    both are powers-of-two divisions of the same f64 root edge).
+
+    `phase_times` gets the main thread's gather and encode
+    ("encode+write/encode"), its waits on the pool's writes
+    ("encode+write/wait"), and the pool's node-file writes summed over its
+    threads ("encode+write/write")."""
     # Node-file write parallelism (IO-bound): PCV_WRITE_THREADS overrides —
     # the analogue of the reference CLI's --num_threads rayon pool size
     # ("set as high as possible for SSDs", src/bin/build_octree.rs:36-38).
@@ -1126,7 +1133,7 @@ def _write_levels(
     try:
         return _write_levels_pooled(
             pool, directory, batch, order, final_nodes, root_cube,
-            resolution, prefix,
+            resolution, prefix, phase_times,
         )
     finally:
         # An encode/IO error (e.g. ENOSPC from f.result()) must not leak
@@ -1134,8 +1141,14 @@ def _write_levels(
         pool.shutdown(wait=True, cancel_futures=True)
 
 
+def _write_node_timed(phase_times, *args) -> None:
+    with timed_phase(phase_times, "encode+write/write"):
+        write_node_files(*args)
+
+
 def _write_levels_pooled(
     pool, directory, batch, order, final_nodes, root_cube, resolution, prefix,
+    phase_times,
 ):
     recorded: List[Tuple[NodeId, int]] = []
     order = np.asarray(order, dtype=np.int64)
@@ -1163,23 +1176,25 @@ def _write_levels_pooled(
             hi = int(nodes.offsets[node_end])
             global_idx = order[nodes.idx[lo:hi]]
             chunk_counts = counts[node_start:node_end]
-            encoded = native.gather_encode(
-                batch.position, global_idx,
-                mins[node_start:node_end], edges[node_start:node_end],
-                nodes.offsets[node_start : node_end + 1] - lo,
-                encoding.numpy_dtype.base,
-            )
-            if encoded is None:  # no native library: numpy fallback
-                pt_min = np.repeat(mins[node_start:node_end], chunk_counts, axis=0)
-                pt_edge = np.repeat(edges[node_start:node_end], chunk_counts)
-                encoded = encode_positions(
-                    batch.position[global_idx], pt_min, pt_edge, encoding
+            with timed_phase(phase_times, "encode+write/encode"):
+                encoded = native.gather_encode(
+                    batch.position, global_idx,
+                    mins[node_start:node_end], edges[node_start:node_end],
+                    nodes.offsets[node_start : node_end + 1] - lo,
+                    encoding.numpy_dtype.base,
                 )
-                del pt_min, pt_edge
-            attrs = {}
-            for name, arr in batch.attributes.items():
-                taken = native.take_rows(arr, global_idx)
-                attrs[name] = arr[global_idx] if taken is None else taken
+                if encoded is None:  # no native library: numpy fallback
+                    pt_min = np.repeat(mins[node_start:node_end], chunk_counts,
+                                       axis=0)
+                    pt_edge = np.repeat(edges[node_start:node_end], chunk_counts)
+                    encoded = encode_positions(
+                        batch.position[global_idx], pt_min, pt_edge, encoding
+                    )
+                    del pt_min, pt_edge
+                attrs = {}
+                for name, arr in batch.attributes.items():
+                    taken = native.take_rows(arr, global_idx)
+                    attrs[name] = arr[global_idx] if taken is None else taken
             chunk_futures = []
             for i in range(node_start, node_end):
                 if prefix is not None:
@@ -1193,7 +1208,7 @@ def _write_levels_pooled(
                 recorded.append((node_id, b - a))
                 chunk_futures.append(
                     pool.submit(
-                        write_node_files,
+                        _write_node_timed, phase_times,
                         os.path.join(directory, str(node_id)),
                         encoded[a:b],
                         {name: arr[a:b] for name, arr in attrs.items()},
@@ -1202,12 +1217,14 @@ def _write_levels_pooled(
             # Double-buffer: wait on the PREVIOUS chunk's writes before
             # encoding the one after next, so file IO overlaps the next
             # chunk's encode while at most two chunks' buffers are alive.
-            for f in pending_futures:
-                f.result()
+            with timed_phase(phase_times, "encode+write/wait"):
+                for f in pending_futures:
+                    f.result()
             pending_futures = chunk_futures
             node_start = node_end
-    for f in pending_futures:
-        f.result()
+    with timed_phase(phase_times, "encode+write/wait"):
+        for f in pending_futures:
+            f.result()
     return recorded
 
 

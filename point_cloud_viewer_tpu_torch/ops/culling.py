@@ -21,6 +21,7 @@ import torch
 
 from ..device import resolve_device
 from ..math.geometry import Frustum, Isometry, Perspective  # noqa: F401 (re-exported)
+from ..utils.progress import span
 from .cull_cuda import cull_lod
 
 # --- copied from point_cloud_viewer_tpu/ops/culling.py:19-26 --------------
@@ -241,7 +242,13 @@ class DeviceCullSession:
     On a CUDA device the kernel library is built (or loaded) here, so the
     first frame does not wait for nvcc.  Frame i of `step_frames` is
     bit-equal to `step` on the same frustum at the same `a_cap` (one
-    kernel, one arithmetic per node and frame)."""
+    kernel, one arithmetic per node and frame).
+
+    While a torch.profiler session runs, each call records the spans
+    `select.prep` (the frustum's axes and projections, the pad),
+    `select.upload` (four copies to the device), `select.launch` (K5 and
+    the sort, as enqueued) and `select.fetch` (the three copies back, which
+    wait for the device) (utils/progress.span)."""
 
     def __init__(self, node_mins, node_edges, num_points,
                  axis_capacity: int = 32, device="cuda") -> None:
@@ -270,14 +277,18 @@ class DeviceCullSession:
 
     def step(self, frustum) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """One frame -> (priority_order (K,) i32, sizes (K,), visible (K,))."""
-        axes, qmin, qmax = frustum_axes_and_projections(frustum)
-        ax, qn, qx = self._pad(axes, qmin, qmax)
-        order, sizes, visible = frustum_cull_lod_select(
-            self._put(frustum.clip_from_query.astype(np.float32)),
-            self._put(ax), self._put(qn), self._put(qx),
-            self._mins, self._edges, self._num_points,
-        )
-        return order.cpu().numpy(), sizes.cpu().numpy(), visible.cpu().numpy()
+        with span("select.prep"):
+            axes, qmin, qmax = frustum_axes_and_projections(frustum)
+            ax, qn, qx = self._pad(axes, qmin, qmax)
+            mat = frustum.clip_from_query.astype(np.float32)
+        with span("select.upload"):
+            args = [self._put(a) for a in (mat, ax, qn, qx)]
+        with span("select.launch"):
+            order, sizes, visible = frustum_cull_lod_select(
+                *args, self._mins, self._edges, self._num_points)
+        with span("select.fetch"):
+            return (order.cpu().numpy(), sizes.cpu().numpy(),
+                    visible.cpu().numpy())
 
     def step_frames(self, frustums) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """F frames in ONE launch -> ((F, K) orders, sizes, visible)."""
@@ -289,14 +300,18 @@ class DeviceCullSession:
                 np.empty((0, k), np.float32),
                 np.empty((0, k), bool),
             )
-        need = max(
-            len(frustum_axes_and_projections(f)[0]) for f in frustums
-        )
-        if need > self.a_cap:
-            self.a_cap = int(need * 2)
-        mats, axs, qns, qxs = prep_frustum_frames(frustums, self.a_cap)
-        order, sizes, visible = frustum_cull_lod_select_frames(
-            self._put(mats), self._put(axs), self._put(qns), self._put(qxs),
-            self._mins, self._edges, self._num_points,
-        )
-        return order.cpu().numpy(), sizes.cpu().numpy(), visible.cpu().numpy()
+        with span("select.prep"):
+            need = max(
+                len(frustum_axes_and_projections(f)[0]) for f in frustums
+            )
+            if need > self.a_cap:
+                self.a_cap = int(need * 2)
+            frames = prep_frustum_frames(frustums, self.a_cap)
+        with span("select.upload"):
+            args = [self._put(a) for a in frames]
+        with span("select.launch"):
+            order, sizes, visible = frustum_cull_lod_select_frames(
+                *args, self._mins, self._edges, self._num_points)
+        with span("select.fetch"):
+            return (order.cpu().numpy(), sizes.cpu().numpy(),
+                    visible.cpu().numpy())

@@ -12,7 +12,10 @@ Port of point_cloud_viewer_tpu/query/client.py:1-235: the per-point
 filter runs on the card by default (`device_filter=True`, `device="cuda"`),
 as the port's build derives on the card by default.  Each worker uploads
 one node's positions, masks them and fetches the mask on the default CUDA
-stream; `filter_stats` tallies the rows.
+stream; `filter_stats` tallies the rows.  While a torch.profiler session
+runs, `stream` records the spans `query.select_nodes` (the node list, on the
+caller's thread), `query.decode` and `query.mask` (each node, in the
+workers) and the counter `query.nodes` (utils/progress.span).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 from ..core.constants import NUM_POINTS_PER_BATCH
 from ..core.points_batch import PointsBatch
 from ..math.geometry import Aabb
+from ..utils.progress import count, span
 from .point_query import PointQuery
 
 
@@ -156,16 +160,18 @@ class PointCloudClient:
         outstanding work cooperatively — the reference's early-stop
         semantics (src/iterator.rs:226-334, src/octree/tests.rs:83-136)."""
         jobs: List[Tuple[object, object, bool]] = []
-        for cloud in self.clouds:
-            ex = getattr(cloud, "nodes_in_location_ex", None)
-            if ex is not None:
-                # fully_inside nodes skip the per-point geometry mask
-                # (bit-exact by construction — see nodes_in_location_ex).
-                for node_id, fully in ex(query.location):
-                    jobs.append((cloud, node_id, fully))
-            else:
-                for node_id in cloud.nodes_in_location(query.location):
-                    jobs.append((cloud, node_id, False))
+        with span("query.select_nodes"):
+            for cloud in self.clouds:
+                ex = getattr(cloud, "nodes_in_location_ex", None)
+                if ex is not None:
+                    # fully_inside nodes skip the per-point geometry mask
+                    # (bit-exact by construction — see nodes_in_location_ex).
+                    for node_id, fully in ex(query.location):
+                        jobs.append((cloud, node_id, fully))
+                else:
+                    for node_id in cloud.nodes_in_location(query.location):
+                        jobs.append((cloud, node_id, False))
+        count("query.nodes", len(jobs))
 
         out: "queue.Queue" = queue.Queue(maxsize=self.buffer_size)
         cancel = threading.Event()
@@ -192,16 +198,18 @@ class PointCloudClient:
                     if job is None:
                         break
                     cloud, node_id, fully = job
-                    batch = cloud.points_in_node(node_id, attributes=query.attributes)
-                    rebatcher.push(
-                        query.filter_batch(
+                    with span("query.decode"):
+                        batch = cloud.points_in_node(
+                            node_id, attributes=query.attributes)
+                    with span("query.mask"):
+                        batch = query.filter_batch(
                             batch,
                             use_device=self.device_filter,
                             skip_geometry=fully,
                             device=self.device,
                             stats=self.filter_stats,
                         )
-                    )
+                    rebatcher.push(batch)
                 rebatcher.flush()
             except _Cancelled:
                 pass

@@ -2,7 +2,15 @@
 `timed_phase`, and the CLIs' parsers `parse_key_val` and `parse_aabb` (copy
 of point_cloud_viewer_tpu/utils/progress.py:13-50, 51-81 and 96-115;
 `build_octree(progress=True)` passes `echo`, the x-ray build draws a
-`ProgressBar`), and `torch_trace`, the twin of its `jax_trace` (:84-93)."""
+`ProgressBar`), and `torch_trace`, the twin of its `jax_trace` (:84-93).
+
+The port's spans: `span(name)` and `count(name, n)` record only while a
+torch.profiler session runs in the process.  A span then puts a
+`record_function` range on the profiler's timeline (a `user_annotation`
+event in its Chrome trace) and adds [calls, seconds] into a process-wide
+table; a counter adds n to its entry's first number.  `span_totals()`
+reads the table, from any thread's spans.  With no profiler running, a
+span is one flag check.  `timed_phase` opens `span("build." + key)`."""
 
 from __future__ import annotations
 
@@ -11,7 +19,7 @@ import os
 import sys
 import threading
 import time
-from typing import Iterator, Optional
+from typing import Dict, Iterator, List, Optional
 
 
 class ProgressBar:
@@ -65,25 +73,85 @@ def timed(label: str, stream=None) -> Iterator[None]:
         stream.flush()
 
 
+# The span table and the lock that guards it and every phase_times addition
+# made through timed_phase (the build's write pool adds from its threads).
+_lock = threading.Lock()
+_totals: Dict[str, List[float]] = {}
+
+
+def _profiling() -> bool:
+    """Whether a torch.profiler session runs: torch's own module-level flag,
+    which worker threads see too.  Without torch loaded none can run."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and prof._is_profiler_enabled
+
+
+def _add_total(name: str, calls: int, seconds: float) -> None:
+    with _lock:
+        entry = _totals.setdefault(name, [0, 0.0])
+        entry[0] += calls
+        entry[1] += seconds
+
+
+@contextlib.contextmanager
+def span(name: str) -> Iterator[None]:
+    """A named range of host time: while a torch.profiler session runs, a
+    `record_function(name)` range on the trace's clock and [1, seconds]
+    added into the span table under `name`; otherwise nothing."""
+    if not _profiling():
+        yield
+        return
+    import torch
+
+    t0 = time.perf_counter()
+    try:
+        with torch.profiler.record_function(name):
+            yield
+    finally:
+        _add_total(name, 1, time.perf_counter() - t0)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the counter `name` in the span table while a profiler
+    session runs (its entry reads [total, 0.0])."""
+    if _profiling():
+        _add_total(name, n, 0.0)
+
+
+def span_totals() -> Dict[str, List[float]]:
+    """A copy of the span table: name -> [calls, seconds] of a span, or
+    [total, 0.0] of a counter, summed over threads since the last reset."""
+    with _lock:
+        return {name: list(entry) for name, entry in _totals.items()}
+
+
+def reset_span_totals() -> None:
+    with _lock:
+        _totals.clear()
+
+
 @contextlib.contextmanager
 def timed_phase(phase_times: Optional[dict], key: str,
                 echo: Optional[str] = None) -> Iterator[None]:
     """Accumulate wall time into phase_times[key] (no-op dict when None);
     with `echo`, also print a `timed`-style breadcrumb.  Records on
     exceptions too (try/finally), so a failed phase still shows where the
-    time went."""
+    time went.  The phase is also `span("build." + key)`, and additions
+    from several threads into one dict are safe."""
     t0 = time.perf_counter()
     try:
-        if echo is not None:
-            with timed(echo):
+        with span("build." + key):
+            if echo is not None:
+                with timed(echo):
+                    yield
+            else:
                 yield
-        else:
-            yield
     finally:
         if phase_times is not None:
-            phase_times[key] = (
-                phase_times.get(key, 0.0) + time.perf_counter() - t0
-            )
+            with _lock:
+                phase_times[key] = (
+                    phase_times.get(key, 0.0) + time.perf_counter() - t0
+                )
 
 
 @contextlib.contextmanager
@@ -92,8 +160,9 @@ def torch_trace(log_dir: Optional[str]) -> Iterator[None]:
     twin of the JAX package's `jax_trace` (progress.py:84-93), which wraps
     it in a jax.profiler trace.  Without log_dir it does nothing.
 
-    The profile records CPU activity and, where torch sees a card, CUDA
-    activity (kernels, memcpys, memsets).  On exit, also when the region
+    The profile records CPU activity of every thread (the query client's
+    workers and the build's write pool too, with their spans) and, where
+    torch sees a card, CUDA activity (kernels, memcpys, memsets).  On exit, also when the region
     raises, one Chrome trace is written into log_dir (created if absent)
     as `trace.<pid>.<ns>.json`; a failure to write it raises."""
     if not log_dir:
@@ -108,7 +177,9 @@ def torch_trace(log_dir: Optional[str]) -> Iterator[None]:
     os.makedirs(log_dir, exist_ok=True)
     path = os.path.join(log_dir,
                         f"trace.{os.getpid()}.{time.time_ns()}.json")
-    prof = profile(activities=activities)
+    prof = profile(activities=activities,
+                   experimental_config=torch._C._profiler._ExperimentalConfig(
+                       profile_all_threads=True))
     prof.start()
     try:
         yield
