@@ -288,6 +288,7 @@ QUERY_ALT = (-100.0, 500.0)          # phase 10: altitudes (m)
 QUERY_RESOLUTION = 0.01              # phase 10: 1 cm (depth cap 21)
 QUERY_ZOOM = 12                      # phase 10: --web_mercator_rect zoom
 QUERY_FACE_POINTS = 1 << 20          # phase 10b: adversarial points
+QUERY_MASK_ROWS = 100_000            # phase 10c: a full node (K8)
 XRAY_TILE = 256                      # phase 11: tile size (px)
 XRAY_RESOLUTION = 0.05               # phase 11: m a pixel (reference: 0.01)
 XRAY_STRATEGIES = (                  # phase 11a: strategy, its flags
@@ -2205,7 +2206,8 @@ def phase_query(wrappers: dict, tmp: str) -> None:
             f"{stats.refined}")
         if name == "web_mercator":
             on_card = torch.empty(0, device=dev).device  # with its index
-            line[-1] += f"; delta {_calibrated_delta(on_card)!r}"
+            line[-1] += (f"; delta {_calibrated_delta(on_card, fused=True)!r}"
+                         f" (K8's projection)")
         log(" ".join(line))
     launches = {k: w.launches for k, w in wrappers.items()}
     if any(launches.values()):
@@ -2249,6 +2251,97 @@ def phase_query(wrappers: dict, tmp: str) -> None:
         f"ids with bit 63 set, {int(want.sum())} in a {len(union)}-cell "
         f"union); leaf ids and union masks card == CPU route == host")
     log(f"query: phase 10 took {time.perf_counter() - t_phase:.3f} s")
+
+
+def phase_query_mask() -> dict:
+    """10c: K8 (csrc/query_mask.cu) on one QUERY_MASK_ROWS node of each
+    region, without and with two intervals (testing.query_mask_case):
+    point_filter_mask bit-equal to the host; CUDA-event medians of the
+    entry's round trip (pinned H2D, the kernel, D2H, on its own stream) and
+    of the kernel alone (pcv_query_mask_launch on the uploaded node); host
+    ms of point_filter_mask (K8 and the host refinement) and of the eager
+    route's classes on the card, which K8 replaced; bytes a launch and the
+    kernel over its bound at 3.35 TB/s.  -> {case: readings}."""
+    import torch
+
+    from point_cloud_viewer_tpu_torch import testing
+    from point_cloud_viewer_tpu_torch.math.web_mercator_device import (
+        _calibrated_delta)
+    from point_cloud_viewer_tpu_torch.ops import _ext
+    from point_cloud_viewer_tpu_torch.query import device_filter as DF
+
+    dev = torch.empty(0, device=DEVICE).device  # with its index
+    n = QUERY_MASK_ROWS
+    out = {}
+    for kind in testing.QUERY_MASK_KINDS:
+        for with_intervals in (False, True):
+            loc, pts, intervals, attrs = testing.query_mask_case(
+                kind, n, seed=23, with_intervals=with_intervals)
+            want = testing.query_mask_host(loc, pts, intervals, attrs)
+            got = DF.point_filter_mask(loc, pts, intervals, attrs, device=dev)
+            if not np.array_equal(got, want):
+                raise AssertionError(
+                    f"K8 {kind}: {int(np.count_nonzero(got != want))} rows "
+                    f"differ from the host")
+            names = sorted(intervals)
+            k = len(names)
+            g = loc.geometry
+            delta = (_calibrated_delta(dev, fused=True)
+                     if kind == "web_mercator" else 0.0)
+            params = DF._k8_params(
+                type(g), g, [intervals[m].lower_bound for m in names],
+                [intervals[m].upper_bound for m in names], delta)
+            st = DF._take_staging(dev)
+            st.reserve((3 + k) * n, n)
+            host = st.host_in.numpy()
+            host[:3 * n] = pts.ravel()
+            for i, m in enumerate(names):
+                host[(3 + i) * n:(4 + i) * n] = attrs[m]
+            code = DF._K8_KIND[type(g)]
+            lib = _ext.lib()
+
+            def entry():
+                _ext.check(lib.pcv_query_mask(
+                    code, params.ctypes.data, k, n, st.host_in.data_ptr(),
+                    st.dev_in.data_ptr(), st.dev_codes.data_ptr(),
+                    st.host_codes.data_ptr(), st.stream_ptr()),
+                    "pcv_query_mask")
+
+            def kernel():
+                _ext.check(lib.pcv_query_mask_launch(
+                    code, params.ctypes.data, k, n, st.dev_in.data_ptr(),
+                    st.dev_codes.data_ptr(), st.stream_ptr()),
+                    "pcv_query_mask_launch")
+
+            with torch.cuda.device(dev), torch.cuda.stream(st.stream):
+                entry_ms = cuda_ms(entry)
+                kernel_ms = cuda_ms(kernel)
+            DF._give_staging(st)
+            times = []
+            for _ in range(REPS):
+                t0 = time.perf_counter()
+                DF.point_filter_mask(loc, pts, intervals, attrs, device=dev)
+                times.append((time.perf_counter() - t0) * 1e3)
+            eager = []
+            for _ in range(REPS):
+                t0 = time.perf_counter()
+                DF._eager_classes(type(g), loc, g, pts, names, intervals,
+                                  attrs, dev)
+                eager.append((time.perf_counter() - t0) * 1e3)
+            nbytes = (24 + 8 * k + 1) * n
+            bound_ms = nbytes / 3.35e12 * 1e3
+            name = f"{kind}{'+2 intervals' if k else ''}"
+            out[name] = {"bytes": nbytes, "bound_ms": bound_ms,
+                         "kernel_ms": kernel_ms, "entry_ms": entry_ms,
+                         "mask_ms": statistics.median(times),
+                         "eager_ms": statistics.median(eager)}
+            log(f"K8 {name}: {n} rows == host; {nbytes} B a launch, bound "
+                f"{bound_ms:.6f} ms at 3.35 TB/s; kernel {kernel_ms:.4f} ms "
+                f"({kernel_ms / bound_ms:.2f}x the bound); entry round trip "
+                f"{entry_ms:.4f} ms; point_filter_mask {out[name]['mask_ms']:.3f}"
+                f" ms; the eager route's classes on the card "
+                f"{out[name]['eager_ms']:.3f} ms")
+    return out
 
 
 # --- phase 11: the x-ray quadtree path -----------------------------------
@@ -4043,6 +4136,25 @@ def run_alone(flag: str, body) -> int:
     return 0
 
 
+def query_mask_main() -> int:
+    """`chip_smoke.py --query-mask`: phase 2 and phase 10c alone; prints
+    10c's readings as the last line."""
+    sys.meta_path.insert(0, RefuseJaxPackage())
+    import torch
+
+    from point_cloud_viewer_tpu_torch.ops import hbm_probe as K7
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    global CARD
+    CARD = K7.card_label(torch.device(DEVICE))
+    build_all()
+    print(json.dumps({"card": CARD, "k8": phase_query_mask()}), flush=True)
+    return 0
+
+
 def main() -> int:
     if sys.argv[1:] == ["--device-ops"]:
         return device_ops_main()
@@ -4051,6 +4163,8 @@ def main() -> int:
                          phase_tools(build, tmp, octree_dir))
     if sys.argv[1:] == ["--api"]:
         return run_alone("--api", phase_api)
+    if sys.argv[1:] == ["--query-mask"]:
+        return query_mask_main()
     if sys.argv[1:2] == ["--trace-build"]:
         return trace_build_main(sys.argv[2:])
     finder = RefuseJaxPackage()
@@ -4129,6 +4243,7 @@ def main() -> int:
         streamed, buckets = phase_streaming(build, tmp, ply, octree_dir,
                                             incore_wall)
         phase_query(build, tmp)
+        phase_query_mask()
         xray_dir = phase_xray({**build, "K5": CC.cull_lod,
                                "K7": K7.stream_probe}, tmp, octree_dir)
         _, api_calls = phase_api(build, tmp, ply, octree_dir)

@@ -22,6 +22,11 @@ projects a fixed grid of ECEF points on the host and on the device that
 computes, and sets `delta = max(1e-9, 1000 x the largest error)`.  1e-9
 normalized units is ~4 cm on the equator.  The probe runs once per device
 (the JAX version caches one value per process).
+
+On a card, query/device_filter.py classifies with K8 (csrc/query_mask.cu),
+whose projection is its own f64 code: `_calibrated_delta(device,
+fused=True)` measures that projection (`project_k8`), not the eager chain
+below, which keeps its own margin.
 """
 
 from __future__ import annotations
@@ -68,18 +73,44 @@ def _classify(p: torch.Tensor, nw: torch.Tensor, se: torch.Tensor,
     return definite_in, ~(definite_in | definite_out)
 
 
+def wmc_consts() -> np.ndarray:
+    """K8's projection constants (csrc/query_mask.cu WmcConsts), 8 f64:
+    the products _wmc_project forms from wgs84's constants."""
+    return np.array([
+        wgs84.SEMI_MAJOR_M, wgs84.SEMI_MINOR_M,
+        wgs84.ECC2_SQ * wgs84.SEMI_MINOR_M, wgs84.ECC_SQ * wgs84.SEMI_MAJOR_M,
+        LAT_BOUND_RAD, 2.0 * math.pi, 0.25 / math.pi, 0.0])
+
+
+def project_k8(p: torch.Tensor) -> torch.Tensor:
+    """(N, 3) f64 points on a card -> (N, 2) normalized Web Mercator by
+    K8's own projection (pcv_web_mercator_project)."""
+    from ..ops import _ext
+
+    p = p.contiguous()
+    out = torch.empty((p.shape[0], 2), dtype=torch.float64, device=p.device)
+    consts = wmc_consts()
+    with _ext.device_guard(p):
+        _ext.check(_ext.lib().pcv_web_mercator_project(
+            consts.ctypes.data, p.data_ptr(), p.shape[0], out.data_ptr(),
+            _ext.stream_ptr(p)), "pcv_web_mercator_project")
+    return out
+
+
 @functools.lru_cache(maxsize=None)
-def _calibrated_delta(device: torch.device) -> float:
+def _calibrated_delta(device: torch.device, fused: bool = False) -> float:
     """The margin for `device`: its projection error on a fixed global grid
-    against the host's, times 1000, at least 1e-9.  Raises if the device
-    gives a non-finite projection."""
+    against the host's, times 1000, at least 1e-9; `fused` measures K8's
+    projection (a card only) instead of the eager chain.  Raises if the
+    device gives a non-finite projection."""
     lat = np.linspace(-1.48, 1.48, 41)
     lon = np.linspace(-np.pi, np.pi, 41, endpoint=False)
     lat_g, lon_g = np.meshgrid(lat, lon)
     alt = np.linspace(-500.0, 10000.0, lat_g.size).reshape(lat_g.shape)
     probe = wgs84.geodetic_to_ecef(lat_g, lon_g, alt).reshape(-1, 3)
     host = ecef_to_web_mercator(probe)
-    dev = _wmc_project(torch.from_numpy(probe).to(device)).cpu().numpy()
+    project = project_k8 if fused else _wmc_project
+    dev = project(torch.from_numpy(probe).to(device)).cpu().numpy()
     err = float(np.max(np.abs(dev - host)))
     if not np.isfinite(err):
         raise RuntimeError(

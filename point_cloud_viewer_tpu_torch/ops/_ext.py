@@ -35,6 +35,12 @@ LIB_PATH = os.path.join(BUILD_DIR, "libpcv_torch_kernels.so")
 # K1-K3 size their scratch with it; lib() checks the library agrees.
 LOOKBACK_TILE = 8192
 
+# K8's argument struct (csrc/query_mask.cu MaskParams): 16 doubles of the
+# region, then the intervals' lows and highs, QUERY_MASK_MAX_INTERVALS
+# each.  lib() checks the library agrees.
+QUERY_MASK_MAX_INTERVALS = 8
+QUERY_MASK_PARAMS = 16 + 2 * QUERY_MASK_MAX_INTERVALS
+
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -80,6 +86,20 @@ _SIGNATURES = {
          c_void_p, c_void_p, c_longlong, c_void_p, c_void_p, c_void_p,
          c_void_p],
         c_int,
+    ),
+    "pcv_query_mask_params": ([], c_int),
+    "pcv_query_mask_max_intervals": ([], c_int),
+    "pcv_query_mask_launch": (
+        [c_int, c_void_p, c_int, c_longlong, c_void_p, c_void_p, c_void_p],
+        c_int,
+    ),
+    "pcv_query_mask": (
+        [c_int, c_void_p, c_int, c_longlong, c_void_p, c_void_p, c_void_p,
+         c_void_p, c_void_p],
+        c_int,
+    ),
+    "pcv_web_mercator_project": (
+        [c_void_p, c_void_p, c_longlong, c_void_p, c_void_p], c_int,
     ),
 }
 
@@ -175,6 +195,12 @@ def lib() -> ctypes.CDLL:
                     f"{LIB_PATH}: look-back tile "
                     f"{handle.pcv_lookback_tile_elems()} != LOOKBACK_TILE "
                     f"{LOOKBACK_TILE}")
+            if (handle.pcv_query_mask_params(),
+                    handle.pcv_query_mask_max_intervals()) != (
+                        QUERY_MASK_PARAMS, QUERY_MASK_MAX_INTERVALS):
+                raise RuntimeError(
+                    f"{LIB_PATH}: K8's argument struct does not match "
+                    "QUERY_MASK_PARAMS / QUERY_MASK_MAX_INTERVALS")
             _lib = handle
         return _lib
 

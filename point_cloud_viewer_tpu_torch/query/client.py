@@ -10,9 +10,10 @@ workers cooperatively — preserving the reference's early-stop semantics
 
 Port of point_cloud_viewer_tpu/query/client.py:1-235: the per-point
 filter runs on the card by default (`device_filter=True`, `device="cuda"`),
-as the port's build derives on the card by default.  Each worker uploads
-one node's positions, masks them and fetches the mask on the default CUDA
-stream; `filter_stats` tallies the rows.  While a torch.profiler session
+as the port's build derives on the card by default.  Each worker masks
+one node at a time through query/device_filter.py (for a box, OBB, frustum
+or Web Mercator tile, one K8 round trip on a stream of its own with the
+GIL released); `filter_stats` tallies the rows.  While a torch.profiler session
 runs, `stream` records the spans `query.select_nodes` (the node list, on the
 caller's thread), `query.decode` and `query.mask` (each node, in the
 workers) and the counter `query.nodes` (utils/progress.span).

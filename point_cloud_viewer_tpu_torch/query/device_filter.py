@@ -52,6 +52,22 @@ term covers underflow).
 WebMercatorRect runs through math/web_mercator_device.py, whose band is
 refined row by row (its host path is elementwise).
 
+Two routes compute the device's classes, chosen by what the call brings:
+* K8 (csrc/query_mask.cu): on a card, for a box, OBB, frustum or
+  WebMercatorRect with at most 8 intervals.  One C entry a node copies the
+  positions and interval columns up from a pinned buffer, classifies every
+  row in one kernel with the rules above, copies one u8 code a row back and
+  waits for its own stream; ctypes releases the GIL for that round trip.
+  Each call in flight takes a staging set (pinned and device buffers and a
+  stream, grown to the largest node seen) from a free list and returns it,
+  so nodes allocate nothing and the workers' threads share no stream.
+* The eager torch ops below: the S2 cell union, `device="cpu"` (the route
+  the tests hold to the JAX package), more than 8 intervals, and interval
+  filters without a region.
+Both feed the same host refinement.  While a torch.profiler session runs,
+the counters `query.mask.fused` and `query.mask.eager` count the calls of
+each (utils/progress.count).
+
 `point_filter_mask` returns None only where a query is host-only by
 nature: a location type it does not know, or a filter attribute that is
 missing or not numeric (the host path then raises its KeyError or
@@ -68,11 +84,19 @@ import torch
 
 from ..device import resolve_device
 from ..math.geometry import Aabb, Frustum, Obb
+from ..math.web_mercator import WebMercatorRect
+from ..math.web_mercator_device import (_calibrated_delta, classify_rect,
+                                        wmc_consts)
+from ..ops import _ext
+from ..utils.progress import count
 from .location import AllPoints, GeometryLocation
 
 _E_REL = 2.0 ** -49      # E = _E_REL * S + _E_ABS: see the module docstring
 _E_ABS = 2.0 ** -1000
 _ROUND = 2.0 ** -52      # 2u: one rounding of each division or subtraction
+
+# K8's regions and their csrc/query_mask.cu MaskKind.
+_K8_KIND = {Aabb: 0, Obb: 1, Frustum: 2, WebMercatorRect: 3}
 
 
 class FilterStats:
@@ -164,8 +188,6 @@ def point_filter_mask(
     bit-equal to the host mask (location.contains and the interval
     filters), or None if the query is host-only (see the module
     docstring).  `device="cpu"` runs the same torch code on CPU tensors."""
-    from ..math.web_mercator import WebMercatorRect
-
     geometry = getattr(location, "geometry", None)
     if isinstance(location, AllPoints):
         kind = None  # no geometric test; intervals may still apply
@@ -192,6 +214,42 @@ def point_filter_mask(
         return np.ones(n, dtype=bool)
 
     dev = resolve_device(device)
+    names = sorted(intervals)
+    if (dev.type == "cuda" and kind in _K8_KIND
+            and len(names) <= _ext.QUERY_MASK_MAX_INTERVALS):
+        count("query.mask.fused", 1)
+        keep, uncertain = _k8_classes(kind, geometry, pos2d, names,
+                                      intervals, attributes, dev)
+    else:
+        count("query.mask.eager", 1)
+        keep, uncertain = _eager_classes(kind, location, geometry, pos2d,
+                                         names, intervals, attributes, dev)
+    if uncertain is None:
+        if stats is not None:
+            stats.add(n)
+        return keep
+
+    result = keep.copy()
+    idx = np.flatnonzero(uncertain)
+    refined = 0
+    if len(idx) and kind is WebMercatorRect:
+        result[idx] = geometry.contains(pos2d[idx])
+        refined = len(idx)
+    elif len(idx):
+        # The whole batch, as the host computed it (see the docstring);
+        # rows outside the intervals stay out.
+        result[idx] = geometry.contains(pos2d)[idx]
+        refined = n
+    if stats is not None:
+        stats.add(n, len(idx), refined)
+    return result
+
+
+def _eager_classes(kind, location, geometry, pos2d, names, intervals,
+                   attributes, dev) -> tuple:
+    """The eager torch route -> (N,) bool (definitely) in and (N,) bool
+    uncertain, or None where no row can be, each within the intervals."""
+    n = pos2d.shape[0]
 
     def f64(*arrays):
         """The arrays, flattened into one f64 upload (torch.tensor copies:
@@ -214,15 +272,12 @@ def point_filter_mask(
             keep, uncertain = _frustum_classify(
                 p, f64(geometry.clip_from_query).view(4, 4))
         elif kind is WebMercatorRect:
-            from ..math.web_mercator_device import classify_rect
-
             keep, uncertain = classify_rect(geometry, p)
         else:
             from ..math.s2_device import union_mask, union_ranges
 
             keep = union_mask(p, union_ranges(location, dev))
-    if intervals:
-        names = sorted(intervals)
+    if names:
         values = f64(*(attributes[k] for k in names)).view(len(names), n)
         lows, highs = f64([intervals[k].lower_bound for k in names],
                           [intervals[k].upper_bound for k in names]).view(
@@ -232,22 +287,119 @@ def point_filter_mask(
         if uncertain is not None:
             uncertain = uncertain & im  # rows the intervals drop stay out
     if uncertain is None:
-        if stats is not None:
-            stats.add(n)
-        return keep.cpu().numpy()
-
+        return keep.cpu().numpy(), None
     both = torch.stack([keep, uncertain]).cpu().numpy()
-    result = both[0].copy()
-    idx = np.flatnonzero(both[1])
-    refined = 0
-    if len(idx) and kind is WebMercatorRect:
-        result[idx] = geometry.contains(pos2d[idx])
-        refined = len(idx)
-    elif len(idx):
-        # The whole batch, as the host computed it (see the docstring);
-        # rows outside the intervals stay out.
-        result[idx] = geometry.contains(pos2d)[idx]
-        refined = n
-    if stats is not None:
-        stats.add(n, len(idx), refined)
-    return result
+    return both[0], both[1]
+
+
+# --- K8 -----------------------------------------------------------------------
+
+
+def _k8_params(kind, geometry, lows, highs, delta: float = 0.0) -> np.ndarray:
+    """K8's argument struct (csrc/query_mask.cu MaskParams) as
+    _ext.QUERY_MASK_PARAMS f64: the region's constants, then the lows and
+    the highs of the intervals.  `delta` is a WebMercatorRect's margin."""
+    out = np.zeros(_ext.QUERY_MASK_PARAMS)
+    region = out[:16]
+    if kind is Aabb:
+        region[:6] = np.concatenate([geometry.mins, geometry.maxs])
+    elif kind is Obb:
+        iso = geometry.obb_from_query
+        region[:15] = np.concatenate([np.asarray(iso.rotation).T.ravel(),
+                                      iso.translation, geometry.half_extent])
+    elif kind is Frustum:
+        region[:] = np.asarray(geometry.clip_from_query).ravel()
+    elif kind is WebMercatorRect:
+        nw = geometry.north_west.normalized.reshape(2)
+        se = geometry.south_east.normalized.reshape(2)
+        region[:8] = np.concatenate([nw + delta, se - delta, nw - delta,
+                                     se + delta])
+        region[8:] = wmc_consts()
+    else:
+        raise ValueError(f"K8 has no region kind {kind!r}")
+    m = _ext.QUERY_MASK_MAX_INTERVALS
+    out[16:16 + len(lows)] = lows
+    out[16 + m:16 + m + len(highs)] = highs
+    return out
+
+
+class _Staging:
+    """One K8 call's buffers and stream on a card: pinned host memory for
+    the input values and the codes, their device twins, grown to the
+    largest node seen, and a stream of its own."""
+
+    def __init__(self, dev: torch.device) -> None:
+        self.dev = dev
+        self.stream = torch.cuda.Stream(dev)
+        self.values = self.rows = 0
+        self.host_in = self.dev_in = self.host_codes = self.dev_codes = None
+
+    def reserve(self, values: int, rows: int) -> None:
+        if values > self.values:
+            self.host_in = torch.empty(values, dtype=torch.float64,
+                                       pin_memory=True)
+            self.dev_in = torch.empty(values, dtype=torch.float64,
+                                      device=self.dev)
+            self.values = values
+        if rows > self.rows:
+            self.host_codes = torch.empty(rows, dtype=torch.uint8,
+                                          pin_memory=True)
+            self.dev_codes = torch.empty(rows, dtype=torch.uint8,
+                                         device=self.dev)
+            self.rows = rows
+
+    def stream_ptr(self) -> int:
+        return self.stream.cuda_stream
+
+
+_staging_lock = threading.Lock()
+_staging_free: Dict[str, list] = {}
+
+
+def _take_staging(dev: torch.device) -> _Staging:
+    with _staging_lock:
+        free = _staging_free.get(str(dev))
+        if free:
+            return free.pop()
+    return _Staging(dev)
+
+
+def _give_staging(staging: _Staging) -> None:
+    with _staging_lock:
+        _staging_free.setdefault(str(staging.dev), []).append(staging)
+
+
+def _k8_classes(kind, geometry, pos2d, names, intervals, attributes,
+                dev) -> tuple:
+    """K8's route -> (N,) bool definitely in and (N,) bool uncertain (None
+    for a box, which is exact), each within the intervals, from one
+    pcv_query_mask call."""
+    n, k = pos2d.shape[0], len(names)
+    if n == 0:
+        return np.zeros(0, dtype=bool), None
+    delta = 0.0
+    if kind is WebMercatorRect:
+        delta = _calibrated_delta(dev, fused=True)
+    params = _k8_params(kind, geometry,
+                        [intervals[name].lower_bound for name in names],
+                        [intervals[name].upper_bound for name in names],
+                        delta)
+    staging = _take_staging(dev)
+    try:
+        staging.reserve((3 + k) * n, n)
+        host = staging.host_in.numpy()
+        np.copyto(host[:3 * n].reshape(n, 3), pos2d, casting="unsafe")
+        for i, name in enumerate(names):
+            np.copyto(host[(3 + i) * n:(4 + i) * n], attributes[name],
+                      casting="unsafe")
+        with _ext.device_guard(staging.dev_in):
+            _ext.check(_ext.lib().pcv_query_mask(
+                _K8_KIND[kind], params.ctypes.data, k, n,
+                staging.host_in.data_ptr(), staging.dev_in.data_ptr(),
+                staging.dev_codes.data_ptr(), staging.host_codes.data_ptr(),
+                staging.stream_ptr()), "pcv_query_mask")
+        codes = staging.host_codes.numpy()[:n]
+        return ((codes & 1) != 0,
+                None if kind is Aabb else (codes & 2) != 0)
+    finally:
+        _give_staging(staging)

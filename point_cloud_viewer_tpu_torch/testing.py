@@ -109,6 +109,104 @@ def s2_face_points(n: int, seed: int) -> np.ndarray:
     return d * rng.uniform(6.35e6, 6.39e6, (n, 1))
 
 
+# K8's regions (csrc/query_mask.cu) by the names of query_mask_case.
+QUERY_MASK_KINDS = ("box", "obb", "frustum", "web_mercator")
+# query_mask_case's WebMercatorRect, normalized north-west and south-east.
+QUERY_MASK_RECT = ((0.52, 0.30), (0.55, 0.33))
+
+
+def query_mask_region(kind: str):
+    """The region of query_mask_case: a box, a rotated OBB and a perspective
+    frustum around the origin (tests/test_device_filter.py's), or a
+    WebMercatorRect over Europe."""
+    from .math.geometry import Aabb, Frustum, Isometry, Obb, Perspective
+    from .math.web_mercator import WebMercatorCoord, WebMercatorRect
+
+    if kind == "box":
+        return Aabb(np.array([-5.0, -3.0, -8.0]), np.array([7.0, 9.0, 2.0]))
+    if kind == "obb":
+        return Obb(Isometry.from_axis_angle([1, 1, 0], 0.7,
+                                            translation=[1.0, -2.0, 3.0]),
+                   np.array([6.0, 4.0, 9.0]))
+    if kind == "frustum":
+        eye = Isometry.from_axis_angle([0, 1, 0], 0.4,
+                                       translation=[0.0, 0.0, 30.0])
+        return Frustum.new(eye, Perspective.from_fov(1.1, 0.9, 1.0, 60.0))
+    nw, se = QUERY_MASK_RECT
+    return WebMercatorRect(WebMercatorCoord(np.array(nw)),
+                           WebMercatorCoord(np.array(se)))
+
+
+def _rect_points(rect, n: int, rng) -> np.ndarray:
+    """ECEF points of a WebMercatorRect's neighbourhood: a third inside, a
+    third on its edges (exactly, or 1e-12 to either side in normalized
+    units), a third within 0.05 of it; altitudes -100 to 5000 m."""
+    from .math import wgs84
+    from .math.web_mercator import web_mercator_to_lat_lng
+
+    nw, se = rect.north_west.normalized, rect.south_east.normalized
+    uv = nw - 0.05 + (se - nw + 0.1) * rng.random((n, 2))
+    inside = np.arange(n) % 3 == 0
+    uv[inside] = nw + (se - nw) * rng.random((int(inside.sum()), 2))
+    edge = np.flatnonzero(np.arange(n) % 3 == 1)
+    axis = rng.integers(0, 2, len(edge))
+    side = np.where((rng.random(len(edge)) < 0.5)[:, None], nw, se)
+    uv[edge, axis] = (side[np.arange(len(edge)), axis]
+                      + rng.choice([0.0, 0.0, 1e-12, -1e-12], len(edge)))
+    lat, lon = web_mercator_to_lat_lng(uv)
+    return wgs84.geodetic_to_ecef(lat, lon, rng.uniform(-100.0, 5000.0, n))
+
+
+def query_mask_case(kind: str, n: int, seed: int,
+                    with_intervals: bool = False) -> tuple:
+    """A node of n points for the query filter's region `kind` (one of
+    QUERY_MASK_KINDS) -> (location, (n, 3) f64 positions, intervals,
+    attributes).  Half the points lie near the region, half on its faces
+    or edges (exactly, or nudged by FACE_NUDGES); with_intervals adds an
+    f32 `intensity` in [0, 100) (NaN and both bounds sprinkled in) and a
+    u16 `class` in [0, 10], with an interval on each; else both dicts are
+    empty."""
+    from .math.intervals import ClosedInterval
+    from .query.location import location_for
+
+    rng = np.random.default_rng(seed)
+    region = query_mask_region(kind)
+    if kind == "web_mercator":
+        pts = _rect_points(region, n, rng)
+    else:
+        pts = rng.random((n, 3)) * 40.0 - 20.0
+        half = n // 2
+        if kind == "box":
+            center = (region.mins + region.maxs) / 2
+            pts[:half] = center + _face_coords(
+                rng, half, (region.maxs - region.mins) / 2)
+        elif kind == "obb":
+            pts[:half] = obb_face_points(region, half, seed)
+        else:
+            pts[:half] = frustum_plane_points(region, half, seed)
+    if not with_intervals:
+        return location_for(region), pts, {}, {}
+    intensity = (rng.random(n) * 100.0).astype(np.float32)
+    intensity[::17] = 20.0
+    intensity[5::17] = 60.0
+    intensity[11::97] = np.nan
+    attributes = {"intensity": intensity,
+                  "class": rng.integers(0, 11, n).astype(np.uint16)}
+    intervals = {"intensity": ClosedInterval(20.0, 60.0),
+                 "class": ClosedInterval(3.0, 7.0)}
+    return location_for(region), pts, intervals, attributes
+
+
+def query_mask_host(location, positions, intervals, attributes) -> np.ndarray:
+    """The host's mask of a query_mask_case: contains() and the interval
+    filters."""
+    with np.errstate(invalid="ignore"):
+        keep = location.contains(positions)
+    for name, interval in intervals.items():
+        keep = keep & interval.contains(attributes[name])
+    return keep
+
+
 def kernel_name(key: str) -> str:
     """A kernel's name without namespace, template arguments or
     parameters."""

@@ -856,8 +856,8 @@ def _query_geometries():
 
 @pytest.mark.parametrize("kind", ["obb", "frustum"])
 def test_face_point_masks_on_card_match_cpu_and_host(cuda, kind):
-    """1,048,576 points on the faces: the card's mask (cuBLAS's product,
-    band refined on the host) equals the CPU route's and the host's."""
+    """1,048,576 points on the faces: the card's mask (K8, band refined on
+    the host) equals the CPU route's and the host's."""
     from point_cloud_viewer_tpu_torch import testing
     from point_cloud_viewer_tpu_torch.query import device_filter as DF
     from point_cloud_viewer_tpu_torch.query.location import location_for
@@ -907,6 +907,155 @@ def test_s2_ids_and_masks_on_card_match_cpu_and_host(cuda):
             np.testing.assert_array_equal(
                 DF.point_filter_mask(loc, pts, device=dev), want)
     assert 1e-9 <= _calibrated_delta(cuda) < 1e-6
+
+
+# --- K8: the query mask's kernel ---------------------------------------------
+
+
+def _fused_only(monkeypatch):
+    """Make the eager route raise: every call below must take K8."""
+    from point_cloud_viewer_tpu_torch.query import device_filter as DF
+
+    def eager(*args, **kwargs):
+        raise AssertionError("the eager route ran where K8 should")
+
+    monkeypatch.setattr(DF, "_eager_classes", eager)
+    return DF
+
+
+@pytest.mark.parametrize("with_intervals", [False, True])
+@pytest.mark.parametrize("n", [0, 1, 65_535, 65_536, 65_537, 100_000])
+@pytest.mark.parametrize("kind", ["box", "obb", "frustum", "web_mercator"])
+def test_k8_mask_matches_host(cuda, monkeypatch, kind, n, with_intervals):
+    """K8's mask, band refined on the host, bit-equal to the host's
+    contains() and interval filters, near and on the region's faces."""
+    from point_cloud_viewer_tpu_torch import testing
+
+    DF = _fused_only(monkeypatch)
+    loc, pts, intervals, attrs = testing.query_mask_case(
+        kind, n, seed=n + 7, with_intervals=with_intervals)
+    stats = DF.FilterStats()
+    got = DF.point_filter_mask(loc, pts, intervals, attrs, device=cuda,
+                               stats=stats)
+    want = testing.query_mask_host(loc, pts, intervals, attrs)
+    assert got.dtype == np.bool_ and got.shape == (n,)
+    np.testing.assert_array_equal(got, want)
+    assert stats.rows == n
+    if n >= 65_535 and kind != "box":
+        assert 0 < stats.uncertain < n
+
+
+@pytest.mark.parametrize("with_intervals", [False, True])
+@pytest.mark.parametrize("kind", ["obb", "frustum"])
+def test_k8_face_points_match_host(cuda, monkeypatch, kind, with_intervals):
+    """The 1,048,576 face points of the eager route's card test, through
+    K8, with and without intervals."""
+    from point_cloud_viewer_tpu_torch import testing
+    from point_cloud_viewer_tpu_torch.query.location import location_for
+
+    DF = _fused_only(monkeypatch)
+    obb, frustum = _query_geometries()
+    g = obb if kind == "obb" else frustum
+    make = (testing.obb_face_points if kind == "obb"
+            else testing.frustum_plane_points)
+    pts = make(g, 1 << 20, seed=21)
+    _, _, intervals, attrs = testing.query_mask_case(
+        "box", 1 << 20, seed=21, with_intervals=with_intervals)
+    loc = location_for(g)
+    stats = DF.FilterStats()
+    got = DF.point_filter_mask(loc, pts, intervals, attrs, device=cuda,
+                               stats=stats)
+    np.testing.assert_array_equal(
+        got, testing.query_mask_host(loc, pts, intervals, attrs))
+    assert 0 < stats.uncertain < len(pts)
+
+
+def test_k8_web_mercator_boundary_band(cuda, monkeypatch):
+    """Points on the rect's edges and 1e-12 either side of them."""
+    from point_cloud_viewer_tpu_torch import testing
+    from point_cloud_viewer_tpu_torch.math import wgs84
+    from point_cloud_viewer_tpu_torch.math.web_mercator import (
+        web_mercator_to_lat_lng)
+    from point_cloud_viewer_tpu_torch.query.location import location_for
+
+    DF = _fused_only(monkeypatch)
+    rect = testing.query_mask_region("web_mercator")
+    nw, se = rect.north_west.normalized, rect.south_east.normalized
+    rng = np.random.default_rng(17)
+    us = np.concatenate([np.repeat([nw[0], se[0]], 40),
+                         rng.uniform(nw[0], se[0], 80)])
+    vs = np.concatenate([rng.uniform(nw[1], se[1], 80),
+                         np.repeat([nw[1], se[1]], 40)])
+    for nudge in (0.0, 1e-12, -1e-12):
+        lat, lon = web_mercator_to_lat_lng(np.stack([us + nudge, vs], -1))
+        pts = wgs84.geodetic_to_ecef(lat, lon, 0.0)
+        np.testing.assert_array_equal(
+            DF.point_filter_mask(location_for(rect), pts, device=cuda),
+            rect.contains(pts))
+
+
+@pytest.mark.parametrize("kind", ["box", "obb", "frustum", "web_mercator"])
+def test_k8_non_finite_rows_match_host(cuda, monkeypatch, kind):
+    """NaN and infinite coordinates: K8 puts them in the band or decides
+    them as the host does."""
+    from point_cloud_viewer_tpu_torch import testing
+
+    DF = _fused_only(monkeypatch)
+    loc, pts, intervals, attrs = testing.query_mask_case(
+        kind, 2_000, seed=5, with_intervals=True)
+    pts[::7, 1] = np.nan
+    pts[3::11, 0] = np.inf
+    pts[5::13, 2] = -np.inf
+    with np.errstate(invalid="ignore"):
+        got = DF.point_filter_mask(loc, pts, intervals, attrs, device=cuda)
+        want = testing.query_mask_host(loc, pts, intervals, attrs)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_k8_calibrated_delta(cuda):
+    """The margin measured on K8's own projection."""
+    from point_cloud_viewer_tpu_torch.math.web_mercator_device import (
+        _calibrated_delta)
+
+    delta = _calibrated_delta(cuda, fused=True)
+    assert np.isfinite(delta) and 1e-9 <= delta < 1e-6
+
+
+def test_k8_seven_threads_match_one(cuda, monkeypatch):
+    """Seven threads masking different nodes at once, as the client's
+    workers do, get one thread's answers."""
+    import threading
+
+    from point_cloud_viewer_tpu_torch import testing
+
+    DF = _fused_only(monkeypatch)
+    cases = [testing.query_mask_case(kind, 30_000 + 1_000 * i, seed=i,
+                                     with_intervals=i % 2 == 1)
+             for i, kind in enumerate(testing.QUERY_MASK_KINDS * 4)]
+    want = [DF.point_filter_mask(*c, device=cuda) for c in cases]
+    got = [[] for _ in range(7)]
+    errors = []
+
+    def work(t):
+        try:
+            for rep in range(3):
+                for i in range(t, len(cases) + t):
+                    j = i % len(cases)
+                    got[t].append((j, DF.point_filter_mask(*cases[j],
+                                                           device=cuda)))
+        except BaseException as e:  # noqa: BLE001 - asserted below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(t,)) for t in range(7)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for per_thread in got:
+        assert len(per_thread) == 3 * len(cases)
+        for j, mask in per_thread:
+            np.testing.assert_array_equal(mask, want[j])
 
 
 # --- the x-ray splat (torch ops on the card, no kernel of the port) ---------

@@ -8,6 +8,8 @@ away from the faces (its `p @ rot_t + translation` rounds unlike numpy's
 BLAS); on face points the port is held to the host alone, and the JAX
 package's count of differing points is printed, not asserted."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -29,10 +31,13 @@ from point_cloud_viewer_tpu.s2_cells.cell_union import CellUnion as JUnion
 from point_cloud_viewer_tpu_torch import testing
 from point_cloud_viewer_tpu_torch.math import s2_device
 from point_cloud_viewer_tpu_torch.math.intervals import ClosedInterval
+from point_cloud_viewer_tpu_torch.math import web_mercator_device as WMD
+from point_cloud_viewer_tpu_torch.math import wgs84
 from point_cloud_viewer_tpu_torch.math.web_mercator_device import (
     _calibrated_delta,
     rect_contains_device,
 )
+from point_cloud_viewer_tpu_torch.ops import _ext
 from point_cloud_viewer_tpu_torch.query import device_filter as DF
 from point_cloud_viewer_tpu_torch.query.location import AllPoints
 from point_cloud_viewer_tpu_torch.query.location import location_for
@@ -372,3 +377,228 @@ def test_cuda_without_a_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="is_available"):
         PointCloudClient([])
     assert PointCloudClient([], device_filter=False).device is None
+
+
+# --- K8's route, rehearsed on the CPU -----------------------------------------
+
+
+def test_k8_struct_matches_the_kernel_source():
+    """_ext's layout of K8's argument struct is csrc/query_mask.cu's."""
+    import re
+
+    src = open(os.path.join(_ext.CSRC, "query_mask.cu")).read()
+    region = int(re.search(r"kMaskRegion = (\d+);", src).group(1))
+    most = int(re.search(r"kMaskMaxIntervals = (\d+);", src).group(1))
+    assert most == _ext.QUERY_MASK_MAX_INTERVALS == 8
+    assert region + 2 * most == _ext.QUERY_MASK_PARAMS
+
+
+@pytest.mark.parametrize("kind", testing.QUERY_MASK_KINDS)
+def test_k8_params_pack_the_geometry(kind):
+    """Each region's constants and the intervals' bounds land where
+    csrc/query_mask.cu's MaskParams reads them; the rest is zero."""
+    g = testing.query_mask_region(kind)
+    lows, highs = [1.5, -2.0, 3.0], [4.5, 7.0, 3.0]
+    params = DF._k8_params(type(g), g, lows, highs, delta=1e-9)
+    assert params.dtype == np.float64
+    assert params.shape == (_ext.QUERY_MASK_PARAMS,)
+    region, lo, hi = params[:16], params[16:24], params[24:]
+    np.testing.assert_array_equal(lo, lows + [0.0] * 5)
+    np.testing.assert_array_equal(hi, highs + [0.0] * 5)
+    if kind == "box":
+        np.testing.assert_array_equal(region[:3], g.mins)
+        np.testing.assert_array_equal(region[3:6], g.maxs)
+        assert not region[6:].any()
+    elif kind == "obb":
+        iso = g.obb_from_query
+        np.testing.assert_array_equal(region[:9].reshape(3, 3),
+                                      iso.rotation.T)
+        np.testing.assert_array_equal(region[9:12], iso.translation)
+        np.testing.assert_array_equal(region[12:15], g.half_extent)
+        assert region[15] == 0.0
+    elif kind == "frustum":
+        np.testing.assert_array_equal(region.reshape(4, 4),
+                                      g.clip_from_query)
+    else:
+        nw, se = g.north_west.normalized, g.south_east.normalized
+        np.testing.assert_array_equal(
+            region[:8], np.concatenate([nw + 1e-9, se - 1e-9, nw - 1e-9,
+                                        se + 1e-9]))
+        np.testing.assert_array_equal(region[8:], [
+            wgs84.SEMI_MAJOR_M, wgs84.SEMI_MINOR_M,
+            wgs84.ECC2_SQ * wgs84.SEMI_MINOR_M,
+            wgs84.ECC_SQ * wgs84.SEMI_MAJOR_M, PWM.LAT_BOUND_RAD,
+            2.0 * np.pi, 0.25 / np.pi, 0.0])
+
+
+def _model_codes(kind, params, k, values):
+    """csrc/query_mask.cu's codes on CPU tensors, read from the packed
+    struct alone: bit 0 definitely in, bit 1 uncertain, each within every
+    interval."""
+    n = values.shape[0] // (3 + k)
+    p = torch.from_numpy(values[:3 * n].reshape(n, 3))
+    r = torch.from_numpy(params[:16])
+    uncertain = torch.zeros(n, dtype=torch.bool)
+    if kind == 0:
+        keep = DF._box_mask(p, r[:3], r[3:6])
+    elif kind == 1:
+        keep, uncertain = DF._obb_classify(p, r[:9].view(3, 3), r[9:12],
+                                           r[12:15])
+    elif kind == 2:
+        keep, uncertain = DF._frustum_classify(p, r.view(4, 4))
+    else:
+        np.testing.assert_array_equal(params[8:16], WMD.wmc_consts())
+        m = WMD._wmc_project(p)
+        keep = ((m >= r[0:2]) & (m < r[2:4])).all(dim=-1)
+        out = ((m < r[4:6]) | (m >= r[6:8])).any(dim=-1)
+        uncertain = ~(keep | out)
+    cols = torch.from_numpy(values[3 * n:].reshape(k, n))
+    im = DF._interval_mask(cols, torch.from_numpy(params[16:16 + k]),
+                           torch.from_numpy(params[24:24 + k]))
+    return ((keep & im).to(torch.uint8)
+            | ((uncertain & im).to(torch.uint8) << 1)).numpy()
+
+
+class _Recorder:
+    """Stands in for _ext.lib() on the CPU: records each pcv_query_mask
+    call and answers it with _model_codes."""
+
+    def __init__(self):
+        self.calls = []
+
+    def pcv_query_mask(self, kind, params, k, n, host_in, dev_in, dev_codes,
+                       host_codes, stream):
+        import ctypes
+
+        params = np.ctypeslib.as_array(
+            (ctypes.c_double * _ext.QUERY_MASK_PARAMS).from_address(params))
+        values = np.ctypeslib.as_array(
+            (ctypes.c_double * ((3 + k) * n)).from_address(host_in))
+        codes = np.ctypeslib.as_array(
+            (ctypes.c_uint8 * n).from_address(host_codes))
+        codes[:] = _model_codes(kind, params.copy(), k, values.copy())
+        self.calls.append((kind, k, n))
+        return 0
+
+
+class _CpuStaging(DF._Staging):
+    """_Staging with its buffers on the CPU and no stream."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.values = self.rows = 0
+        self.host_in = self.dev_in = self.host_codes = self.dev_codes = None
+
+    def reserve(self, values, rows):
+        if values > self.values:
+            self.host_in = torch.empty(values, dtype=torch.float64)
+            self.dev_in = torch.empty(values, dtype=torch.float64)
+            self.values = values
+        if rows > self.rows:
+            self.host_codes = torch.empty(rows, dtype=torch.uint8)
+            self.dev_codes = torch.empty(rows, dtype=torch.uint8)
+            self.rows = rows
+
+    def stream_ptr(self):
+        return 0
+
+
+@pytest.fixture
+def k8_on_the_cpu(monkeypatch):
+    """`device="cuda"` resolved without a card: K8's entry is the recorder,
+    its staging lives on the CPU, and the eager route runs on CPU tensors
+    (its calls are counted)."""
+    import contextlib
+
+    recorder = _Recorder()
+    recorder.eager = 0
+    eager = DF._eager_classes
+
+    def eager_on_the_cpu(*args):
+        recorder.eager += 1
+        return eager(*args[:-1], torch.device("cpu"))
+
+    monkeypatch.setattr(DF, "resolve_device", torch.device)
+    monkeypatch.setattr(DF, "_Staging", _CpuStaging)
+    monkeypatch.setattr(DF, "_staging_free", {})
+    monkeypatch.setattr(DF, "_eager_classes", eager_on_the_cpu)
+    monkeypatch.setattr(DF, "_calibrated_delta", lambda dev, fused=False:
+                        _calibrated_delta(torch.device("cpu")))
+    monkeypatch.setattr(_ext, "lib", lambda: recorder)
+    monkeypatch.setattr(_ext, "device_guard",
+                        lambda t: contextlib.nullcontext())
+    return recorder
+
+
+def _counted(fn):
+    """fn() under a profiler session -> (its result, the mask counters)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from point_cloud_viewer_tpu_torch.utils import progress
+
+    progress.reset_span_totals()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = fn()
+    totals = progress.span_totals()
+    progress.reset_span_totals()
+    return out, tuple(totals.get(f"query.mask.{route}", [0])[0]
+                      for route in ("fused", "eager"))
+
+
+@pytest.mark.parametrize("with_intervals", [False, True])
+@pytest.mark.parametrize("kind", testing.QUERY_MASK_KINDS)
+def test_k8_route_calls_the_entry_once_a_node(k8_on_the_cpu, kind,
+                                              with_intervals):
+    """The four regions on a card take K8: one pcv_query_mask a node, the
+    fused counter a node, and the host's mask after the refinement."""
+    nodes = [testing.query_mask_case(kind, n, seed=n,
+                                     with_intervals=with_intervals)
+             for n in (1, 3_001, 20_000)]
+
+    def mask_all():
+        return [DF.point_filter_mask(*node, device="cuda") for node in nodes]
+
+    got, counted = _counted(mask_all)
+    assert counted == (3, 0)
+    k = 2 if with_intervals else 0
+    code = testing.QUERY_MASK_KINDS.index(kind)
+    assert k8_on_the_cpu.calls == [(code, k, 1), (code, k, 3_001),
+                                   (code, k, 20_000)]
+    assert k8_on_the_cpu.eager == 0
+    for mask, node in zip(got, nodes):
+        np.testing.assert_array_equal(mask, testing.query_mask_host(*node))
+
+
+def test_k8_route_leaves_unions_the_cpu_and_nine_intervals_eager(
+        k8_on_the_cpu):
+    """Cell unions and nine intervals on a card, and every region on the
+    CPU, keep the eager ops: no pcv_query_mask call, the eager counter a
+    node."""
+    pts = _earth_points(3_000, seed=7)
+    ids = [int(c) for c in PS2.parent(
+        PS2.leaf_cell_ids_from_points(pts[:5]), 6)]
+    union = CellUnion(ids)
+    loc, box_pts, _, _ = testing.query_mask_case("box", 3_000, seed=3)
+    nine = {f"v{i}": ClosedInterval(0.5 * i, 5.0 + 0.5 * i)
+            for i in range(9)}
+
+    def columns(n):
+        values = np.random.default_rng(n).random(n) * 10.0
+        return {name: values for name in nine}
+
+    calls = [(union, pts, {}, {}, "cuda"),
+             (union, pts, nine, columns(len(pts)), "cuda"),
+             (loc, box_pts, nine, columns(len(box_pts)), "cuda")]
+    calls += [(*testing.query_mask_case(kind, 2_000, seed=1,
+                                        with_intervals=True), "cpu")
+              for kind in testing.QUERY_MASK_KINDS]
+
+    def mask_all():
+        return [DF.point_filter_mask(*c[:4], device=c[4]) for c in calls]
+
+    got, counted = _counted(mask_all)
+    assert counted == (0, len(calls))
+    assert k8_on_the_cpu.calls == []
+    assert k8_on_the_cpu.eager == len(calls)
+    for mask, c in zip(got, calls):
+        np.testing.assert_array_equal(mask, testing.query_mask_host(*c[:4]))
