@@ -21,7 +21,7 @@ import torch
 
 from ..device import resolve_device
 from ..math.geometry import Frustum, Isometry, Perspective  # noqa: F401 (re-exported)
-from ..utils.progress import span
+from ..utils.progress import count, span
 from .cull_cuda import cull_lod
 
 # --- copied from point_cloud_viewer_tpu/ops/culling.py:19-26 --------------
@@ -180,17 +180,34 @@ def frustum_cull_lod_select_host(
     return order, sizes.astype(np.float32), visible
 
 
-def frustum_axes_and_projections(frustum) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+def frustum_axes_and_projections(frustum, origin=None) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Host-side per-frame prep: cached separating axes of the frustum vs
     AABBs plus the query-corner projections (A is data-dependent; computed
-    once per frame, tiny)."""
+    once per frame, tiny).  With an f64 `origin`, the projections are
+    those of the frame whose zero is `origin` (each shifted by
+    axes . origin in f64 before the cast); the axes are the same."""
     cached = frustum.intersector().cached_axes_for_aabb()
     proj = cached.corners @ cached.axes.T  # (8, A)
+    qmin, qmax = proj.min(axis=0), proj.max(axis=0)
+    if origin is not None:
+        shift = cached.axes @ origin
+        qmin, qmax = qmin - shift, qmax - shift
     return (
         cached.axes.astype(np.float32),
-        proj.min(axis=0).astype(np.float32),
-        proj.max(axis=0).astype(np.float32),
+        qmin.astype(np.float32),
+        qmax.astype(np.float32),
     )
+
+
+def local_clip_matrix(clip_from_query: np.ndarray, origin=None) -> np.ndarray:
+    """The frame's f32 clip_from_query; with an f64 `origin`, that of the
+    frame whose zero is `origin`: clip_from_query @ T(origin), composed in
+    f64 before the cast."""
+    m = np.asarray(clip_from_query, dtype=np.float64)
+    if origin is not None:
+        m = m.copy()
+        m[:, 3] = m[:, :3] @ origin + m[:, 3]
+    return m.astype(np.float32)
 
 
 def pad_cull_axes(axes, qmin, qmax, a_cap: int):
@@ -207,16 +224,17 @@ def pad_cull_axes(axes, qmin, qmax, a_cap: int):
     return ax, qn, qx
 
 
-def prep_frustum_frames(frustums, axis_capacity: int = 0):
+def prep_frustum_frames(frustums, axis_capacity: int = 0, origin=None):
     """Host prep for a multi-frame cull dispatch: per-frame cached axes
     padded to a common width (>= axis_capacity), stacked into (F, 4, 4)
-    matrices + (F, A, 3)/(F, A)/(F, A) axis arrays."""
-    prep = [frustum_axes_and_projections(f) for f in frustums]
+    matrices + (F, A, 3)/(F, A)/(F, A) axis arrays, in the frame whose
+    zero is `origin` where one is given."""
+    prep = [frustum_axes_and_projections(f, origin) for f in frustums]
     a_cap = max([int(axis_capacity)] + [len(p[0]) for p in prep])
     mats, axs, qns, qxs = [], [], [], []
     for f, (axes, qmin, qmax) in zip(frustums, prep):
         ax, qn, qx = pad_cull_axes(axes, qmin, qmax, a_cap)
-        mats.append(f.clip_from_query.astype(np.float32))
+        mats.append(local_clip_matrix(f.clip_from_query, origin))
         axs.append(ax)
         qns.append(qn)
         qxs.append(qx)
@@ -237,7 +255,18 @@ class DeviceCullSession:
     frustum's axis count when one needs more.  `step` is one K5 launch per
     frame, `step_frames` one launch for F frames; both fetch (order,
     sizes, visible) to numpy, which synchronises on the device's default
-    stream, so the session can run in a worker thread.
+    stream, so the session can run in a worker thread.  `step_capped`
+    is `step` cut on the device to the first `cap` entries of its order:
+    it fetches those entries, their sizes and the count of visible nodes,
+    one copy of at most 8 B a listed node, where `step` fetches 9 B a node
+    of the table.
+
+    With an f64 `origin` the session culls in the frame whose zero is
+    `origin`: the table is `node_mins - origin` in f64 before the f32 cut,
+    and each frame's matrix and projections are moved to it in f64 before
+    theirs (`local_clip_matrix`, `frustum_axes_and_projections`).  A table
+    in ECEF (~5e6 m, where an f32 ulp is 0.5 m) culls at its extent's
+    ulp instead.  Without one, the arithmetic is the JAX session's.
 
     On a CUDA device the kernel library is built (or loaded) here, so the
     first frame does not wait for nvcc.  Frame i of `step_frames` is
@@ -247,16 +276,23 @@ class DeviceCullSession:
     While a torch.profiler session runs, each call records the spans
     `select.prep` (the frustum's axes and projections, the pad),
     `select.upload` (four copies to the device), `select.launch` (K5 and
-    the sort, as enqueued) and `select.fetch` (the three copies back, which
-    wait for the device) (utils/progress.span)."""
+    the sort, as enqueued, and `step_capped`'s cut) and `select.fetch`
+    (the copies back, which wait for the device), and the counters
+    `select.fetch_bytes` (bytes copied back) and, in `step_capped`,
+    `select.visible` (nodes visible before the cap) (utils/progress)."""
 
     def __init__(self, node_mins, node_edges, num_points,
-                 axis_capacity: int = 32, device="cuda") -> None:
+                 axis_capacity: int = 32, device="cuda", origin=None) -> None:
         self.device = resolve_device(device)
         self.a_cap = int(axis_capacity)
-        self._mins = torch.as_tensor(
-            np.asarray(node_mins, dtype=np.float32).reshape(-1, 3),
-            device=self.device)
+        self.origin = (None if origin is None
+                       else np.asarray(origin, dtype=np.float64).reshape(3))
+        if self.origin is None:
+            mins = np.asarray(node_mins, dtype=np.float32)
+        else:
+            mins = (np.asarray(node_mins, dtype=np.float64).reshape(-1, 3)
+                    - self.origin).astype(np.float32)
+        self._mins = torch.as_tensor(mins.reshape(-1, 3), device=self.device)
         self._edges = torch.as_tensor(
             np.asarray(node_edges, dtype=np.float32), device=self.device)
         self._num_points = torch.as_tensor(
@@ -275,20 +311,48 @@ class DeviceCullSession:
     def _put(self, array: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(array, dtype=torch.float32, device=self.device)
 
+    def _upload(self, frustum) -> list:
+        """One frame's matrix, axes and projections, on the device."""
+        with span("select.prep"):
+            axes, qmin, qmax = frustum_axes_and_projections(frustum,
+                                                            self.origin)
+            ax, qn, qx = self._pad(axes, qmin, qmax)
+            mat = local_clip_matrix(frustum.clip_from_query, self.origin)
+        with span("select.upload"):
+            return [self._put(a) for a in (mat, ax, qn, qx)]
+
     def step(self, frustum) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """One frame -> (priority_order (K,) i32, sizes (K,), visible (K,))."""
-        with span("select.prep"):
-            axes, qmin, qmax = frustum_axes_and_projections(frustum)
-            ax, qn, qx = self._pad(axes, qmin, qmax)
-            mat = frustum.clip_from_query.astype(np.float32)
-        with span("select.upload"):
-            args = [self._put(a) for a in (mat, ax, qn, qx)]
+        args = self._upload(frustum)
         with span("select.launch"):
             order, sizes, visible = frustum_cull_lod_select(
                 *args, self._mins, self._edges, self._num_points)
         with span("select.fetch"):
-            return (order.cpu().numpy(), sizes.cpu().numpy(),
-                    visible.cpu().numpy())
+            out = (order.cpu().numpy(), sizes.cpu().numpy(),
+                   visible.cpu().numpy())
+        count("select.fetch_bytes", sum(a.nbytes for a in out))
+        return out
+
+    def step_capped(self, frustum, cap: int) -> Tuple[np.ndarray, np.ndarray, int]:
+        """One frame -> (order (n,) i32, sizes (n,) f32, visible): the
+        first n = min(visible, cap) entries of `step`'s order, bit for bit,
+        their sizes, and the count of visible nodes."""
+        args = self._upload(frustum)
+        with span("select.launch"):
+            order, sizes, visible = frustum_cull_lod_select(
+                *args, self._mins, self._edges, self._num_points)
+            head = order[:cap]
+            packed = torch.cat([
+                head, sizes.index_select(0, head).view(torch.int32),
+                visible.sum(dtype=torch.int32).reshape(1)])
+        with span("select.fetch"):
+            host = packed.cpu().numpy()
+        h = len(head)
+        seen = int(host[-1])
+        n = min(seen, h)
+        count("select.fetch_bytes", host.nbytes)
+        count("select.visible", seen)
+        return host[:n], host[h:h + n].view(np.float32), seen
 
     def step_frames(self, frustums) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """F frames in ONE launch -> ((F, K) orders, sizes, visible)."""
@@ -306,12 +370,14 @@ class DeviceCullSession:
             )
             if need > self.a_cap:
                 self.a_cap = int(need * 2)
-            frames = prep_frustum_frames(frustums, self.a_cap)
+            frames = prep_frustum_frames(frustums, self.a_cap, self.origin)
         with span("select.upload"):
             args = [self._put(a) for a in frames]
         with span("select.launch"):
             order, sizes, visible = frustum_cull_lod_select_frames(
                 *args, self._mins, self._edges, self._num_points)
         with span("select.fetch"):
-            return (order.cpu().numpy(), sizes.cpu().numpy(),
-                    visible.cpu().numpy())
+            out = (order.cpu().numpy(), sizes.cpu().numpy(),
+                   visible.cpu().numpy())
+        count("select.fetch_bytes", sum(a.nbytes for a in out))
+        return out

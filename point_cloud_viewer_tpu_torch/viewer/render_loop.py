@@ -18,6 +18,11 @@ The visible set comes from the DeviceCullSession (ops/culling.py: K5 on
 `device`, the default) or, with `device_cull=False`, from the octree's host
 cull (the port's native library).  For the device cull:
 
+* the session (`cull_session`) culls in the frame of the octree's root
+  cube's centre, so a table in ECEF keeps its resolution in f32, and cuts
+  each frame's list to the node cache's capacity on the device
+  (`step_capped`); `node_id_list` turns the list into NodeIds with the
+  cyclic collector paused (`collector_paused`);
 * the session and, on a card, the kernel library are made when the
   renderer is constructed, on the calling thread, so nvcc never runs inside
   the daemon worker;
@@ -33,6 +38,7 @@ writes the final frame as PNG with the standard library (`write_png`).
 
 from __future__ import annotations
 
+import gc
 import queue
 import struct
 import sys
@@ -40,6 +46,7 @@ import threading
 import time
 import zlib
 from collections import OrderedDict
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -49,14 +56,67 @@ from ..math.geometry import Frustum
 from ..octree.node_id import NodeId
 from ..octree.octree import Octree
 from ..ops.culling import DeviceCullSession
+from ..utils.progress import span
 from .camera import Camera
 from .software_raster import draw_wireframe_boxes, rasterize_points
 
 __all__ = ["Camera", "FrameStats", "Octree", "PointCloudRenderer",
-           "run_headless", "write_png"]
+           "cull_session", "node_id_list", "run_headless", "write_png"]
 
 MAX_NODES_IN_FLIGHT = 10
 FPS_LOWER, FPS_UPPER = 20.0, 25.0
+
+
+def cull_session(octree: Octree, device="cuda") -> DeviceCullSession:
+    """The viewer's cull session over `octree`'s node table, on `device`,
+    in the frame whose zero is the root cube's centre."""
+    return DeviceCullSession(octree.cube_mins, octree.cube_edges,
+                             octree.num_points, device=device,
+                             origin=octree.root_cube.center())
+
+
+_collector_lock = threading.Lock()
+_collector_pausers = 0
+_collector_was_enabled = False
+
+
+@contextmanager
+def collector_paused():
+    """Pauses CPython's cyclic collector while held, on any thread.
+
+    A frame's list of up to `max_nodes` NodeIds is a run of that many
+    tracked objects that all live to its end: with the collector running,
+    its young collections promote them, and every few frames the promoted
+    count sets off a full collection of the whole heap (the interpreter's
+    and the libraries' objects, ~0.2 s on a host that also drives a card).
+    The list makes no cycles, so pausing the collector while it is built
+    loses nothing.
+
+    Pauses nest and overlap across threads: the first holder disables the
+    collector if it was enabled, the last restores that state.  The port
+    changes the collector's state nowhere else; code that disables it
+    while a pause is held gets it back enabled when the pause ends."""
+    global _collector_pausers, _collector_was_enabled
+    with _collector_lock:
+        if _collector_pausers == 0:
+            _collector_was_enabled = gc.isenabled()
+            gc.disable()
+        _collector_pausers += 1
+    try:
+        yield
+    finally:
+        with _collector_lock:
+            _collector_pausers -= 1
+            if _collector_pausers == 0 and _collector_was_enabled:
+                gc.enable()
+
+
+def node_id_list(octree: Octree, indices) -> List[NodeId]:
+    """The NodeIds of table rows `indices`, in their order, built with the
+    cyclic collector paused (the span `select.ids` while a profiler
+    runs)."""
+    with span("select.ids"), collector_paused():
+        return [octree.node_ids[i] for i in indices]
 
 
 @dataclass
@@ -189,10 +249,7 @@ class PointCloudRenderer:
     ) -> None:
         self._cull_session = None
         if device_cull:
-            self._cull_session = DeviceCullSession(
-                octree.cube_mins, octree.cube_edges, octree.num_points,
-                device=device,
-            )
+            self._cull_session = cull_session(octree, device)
         self._cull_error: Optional[Exception] = None
         # Cache size clamped to [1000, 16000] MB, ~200 KB per node =>
         # max nodes = MB * 5 (reference lib.rs:374-385).
@@ -223,10 +280,11 @@ class PointCloudRenderer:
 
     def _device_visible(self, frustum: Frustum) -> List[NodeId]:
         """Visible nodes of one frame's frustum through the session, in
-        descending screen size, capped at the node cache's capacity."""
-        order, _, visible = self._cull_session.step(frustum)
-        count = min(int(visible.sum()), self.node_views.max_nodes)
-        return [self.octree.node_ids[i] for i in order[:count]]
+        descending screen size, capped at the node cache's capacity on the
+        device."""
+        order, _, _ = self._cull_session.step_capped(
+            frustum, self.node_views.max_nodes)
+        return node_id_list(self.octree, order)
 
     def _next_matrix(self) -> Optional[np.ndarray]:
         """The newest queued camera matrix (older ones are dropped,

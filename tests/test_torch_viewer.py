@@ -95,10 +95,10 @@ def test_device_cull_error_raises_and_never_falls_back(octree_dir):
     port = PointCloudRenderer(octree, width=160, height=120,
                               device_cull=True, device="cpu")
 
-    def broken(frustum):
+    def broken(frustum, cap):
         raise RuntimeError("cull kernel failed")
 
-    port._cull_session.step = broken
+    port._cull_session.step_capped = broken  # the viewer's capped step
     port.camera_changed(_matrix())
     deadline = time.time() + 60
     while port._cull_error is None and time.time() < deadline:
