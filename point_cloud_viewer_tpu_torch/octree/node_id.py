@@ -12,7 +12,7 @@ significant axis.  (Reference semantics: src/octree/node.rs:25-172.)
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -137,6 +137,35 @@ def unpack_ids(ids) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     lo = np.array([n.index & mask64 for n in ids], dtype=np.uint64)
     hi = np.array([n.index >> 64 for n in ids], dtype=np.uint64)
     return levels, hi, lo
+
+
+# An id's value as two u64 words, as the native meta parser gives it: the
+# upper word is the level byte over the path's top 56 bits (level << 56 |
+# path_hi), the lower word the path's low 64 bits (path_lo).
+_LEVEL_SHIFT = np.uint64(56)
+
+
+def split_upper_words(id_hi: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(K,) upper u64 words of ids -> (levels u8, path_hi u64)."""
+    return ((id_hi >> _LEVEL_SHIFT).astype(np.uint8),
+            id_hi & np.uint64((1 << 56) - 1))
+
+
+def ids_at(levels: np.ndarray, path_hi: np.ndarray, path_lo: np.ndarray,
+           rows) -> List[NodeId]:
+    """The NodeIds of rows `rows` of the (levels, path_hi, path_lo) columns,
+    in their order, in one pass: each column indexed once, the upper words
+    joined in numpy and turned into Python ints with the lower words, and
+    each NodeId made as its dataclass `__init__` makes it."""
+    rows = np.asarray(rows, dtype=np.intp)
+    upper = levels[rows].astype(np.uint64) << _LEVEL_SHIFT | path_hi[rows]
+    new, set_field = object.__new__, object.__setattr__
+    out = []
+    for up, lo in zip(upper.tolist(), path_lo[rows].tolist()):
+        node = new(NodeId)
+        set_field(node, "value", up << 64 | lo)
+        out.append(node)
+    return out
 
 
 def shifted_prefix(

@@ -29,7 +29,9 @@ from ..core.points_batch import PointsBatch
 from ..io.node_io import DataProvider, OnDiskDataProvider, read_node_batch
 from ..math.geometry import Aabb, Cube
 from ..ops.codec import PositionEncoding
-from .node_id import NodeId, bounding_cubes, bounding_cubes2, unpack_ids
+from .node_id import (
+    NodeId, bounding_cubes, bounding_cubes2, ids_at, split_upper_words,
+    unpack_ids)
 
 _CORNER_UNIT = np.array(
     [[x, y, z] for z in (0, 1) for y in (0, 1) for x in (0, 1)], dtype=np.float64
@@ -151,9 +153,7 @@ class Octree:
             self.meta_version = version
             self.resolution = resolution
             self.bounding_box = Aabb(bbox[:3], bbox[3:])
-            self.levels = (id_hi >> np.uint64(56)).astype(np.uint8)
-            mask56 = np.uint64((1 << 56) - 1)
-            self.path_hi = id_hi & mask56
+            self.levels, self.path_hi = split_upper_words(id_hi)
             self.path_lo = id_lo
             self.num_points = num_points
             if len(enc) and (enc.min() < 1 or enc.max() > 4):
@@ -317,6 +317,11 @@ class Octree:
         return len(self.node_ids)
 
     # -- node lookup -------------------------------------------------------
+
+    def node_ids_at(self, rows) -> List[NodeId]:
+        """`[self.node_ids[i] for i in rows]`, made in one pass over the id
+        columns that both meta decoders fill."""
+        return ids_at(self.levels, self.path_hi, self.path_lo, rows)
 
     def node_meta(self, node_id: NodeId) -> NodeMeta:
         if self._index is None:

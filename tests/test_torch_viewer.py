@@ -24,6 +24,7 @@ from point_cloud_viewer_tpu.viewer.render_loop import (
     PointCloudRenderer as JaxRenderer,
 )
 from point_cloud_viewer_tpu_torch.cli.view import main as view_main
+from point_cloud_viewer_tpu_torch.octree.octree import Octree as PortOctree
 from point_cloud_viewer_tpu_torch.viewer.render_loop import (
     PointCloudRenderer,
     run_headless,
@@ -74,16 +75,19 @@ def test_device_cull_on_cpu_matches_jax_host_and_device(octree_dir):
     matrix = _matrix()
     host = JaxRenderer(octree, width=640, height=480)
     jax_dev = JaxRenderer(octree, width=640, height=480, device_cull=True)
-    port = PointCloudRenderer(octree, width=640, height=480,
-                              device_cull=True, device="cpu")
+    port = PointCloudRenderer(PortOctree.from_directory(octree_dir),
+                              width=640, height=480, device_cull=True,
+                              device="cpu")
     try:
         assert port._cull_session.device == torch.device("cpu")
         for r in (host, jax_dev, port):
             r.camera_changed(matrix)
         host_ids, jax_ids, port_ids = _wait_visible([host, jax_dev, port])
         assert host_ids, "host path saw nothing: bad fixture"
-        assert set(port_ids) == set(host_ids)
-        assert set(port_ids) == set(jax_ids)
+        # Each package's NodeIds over its own octree: equal by value.
+        port_values = {n.value for n in port_ids}
+        assert port_values == {n.value for n in host_ids}
+        assert port_values == {n.value for n in jax_ids}
         assert len(port_ids) == len(set(port_ids))
     finally:
         for r in (host, jax_dev, port):
@@ -114,7 +118,7 @@ def test_device_cull_error_raises_and_never_falls_back(octree_dir):
 def test_bad_camera_matrix_skips_the_frame(octree_dir):
     """A singular or non-finite matrix is skipped as in the JAX package;
     the next good matrix is culled on the device."""
-    octree = Octree.from_directory(octree_dir)
+    octree = PortOctree.from_directory(octree_dir)
     port = PointCloudRenderer(octree, width=160, height=120,
                               device_cull=True, device="cpu")
     try:
