@@ -11,13 +11,14 @@ selection, and the query planner.
 Relations are encoded as integers: REL_IN=0, REL_CROSS=1, REL_OUT=2 (ordering
 chosen so that `max` over parts composes like the reference's enum).
 
-Copy of point_cloud_viewer_tpu/math/sat.py:1-141, unchanged.
+Copy of point_cloud_viewer_tpu/math/sat.py:1-141 with one deviation:
+`dedup_axes` compares every pair of axes in one vectorised pass instead of
+a Python double loop, and keeps the same rows (so the same bits).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
 
 import numpy as np
 
@@ -103,19 +104,27 @@ class CachedAxes:
 
 def dedup_axes(axes: np.ndarray, eps: float = 2.220446049250313e-16) -> np.ndarray:
     """Drop axes that duplicate an earlier one up to sign
-    (reference dedup criterion: src/math/sat.rs:119-130)."""
-    kept: List[np.ndarray] = []
-    for ax in axes:
-        dupe = False
-        for k in kept:
-            d1 = np.sum((ax - k) ** 2)
-            d2 = np.sum((ax + k) ** 2)
-            if min(d1, d2) < eps:
-                dupe = True
-                break
-        if not dupe:
-            kept.append(ax)
-    return np.stack(kept) if kept else np.empty((0, 3))
+    (reference dedup criterion: src/math/sat.rs:119-130).
+
+    Greedy, as the reference's loop: row i is kept unless a KEPT earlier
+    row j has min(|a_i - a_j|^2, |a_i + a_j|^2) < eps.  Every pair's
+    squared distances come from one broadcast, their three terms summed
+    left to right as np.sum sums a 3-vector, and min is Python's (a NaN
+    first operand wins), so the keep decisions are the loop's."""
+    axes = np.asarray(axes)
+    n = len(axes)
+    if n == 0:
+        return np.empty((0, 3))
+    # a_i - (-a_j) is a_i + a_j to the bit, so one subtraction gives both.
+    sq = (axes[:, None, :] - np.concatenate([axes, -axes])[None, :, :]) ** 2
+    d = sq[..., 0] + sq[..., 1] + sq[..., 2]
+    d1, d2 = d[:, :n], d[:, n:]
+    close = np.tril(np.where(d2 < d1, d2, d1) < eps, -1)
+    keep = ~close.any(axis=1)
+    # A row close to an earlier one goes only if one of those was kept.
+    for i in np.flatnonzero(~keep):
+        keep[i] = not close[i, :i][keep[:i]].any()
+    return axes[keep]
 
 
 def sat_relation(

@@ -104,10 +104,10 @@ def _order(priority: torch.Tensor) -> torch.Tensor:
 
 
 def frustum_cull_lod_select(
-    matrix: torch.Tensor,  # (4, 4) clip_from_query
-    axes: torch.Tensor,  # (A, 3) cached separating axes
-    query_min_proj: torch.Tensor,  # (A,)
-    query_max_proj: torch.Tensor,  # (A,)
+    matrix: torch.Tensor,  # (4, 4) clip_from_query, or (F, 4, 4)
+    axes: torch.Tensor,  # (A, 3) cached separating axes, or (F, A, 3)
+    query_min_proj: torch.Tensor,  # (A,), or (F, A)
+    query_max_proj: torch.Tensor,  # (A,), or (F, A)
     node_mins: torch.Tensor,  # (K, 3)
     node_edges: torch.Tensor,  # (K,)
     num_points: torch.Tensor,  # (K,) int32
@@ -115,7 +115,9 @@ def frustum_cull_lod_select(
     """The per-frame step: returns (priority_order (K,) int32, sizes (K,),
     visible (K,) bool) on the inputs' device.  priority_order lists ALL
     node indices sorted by descending screen size with invisible nodes
-    pushed to the end; callers take the first `visible.sum()` entries."""
+    pushed to the end; callers take the first `visible.sum()` entries.
+    With a leading frame dim F on the frame's inputs, the F frames take
+    one K5 launch and each output gains that dim: (F, K)."""
     sizes, visible, priority = cull_lod(
         matrix, axes, query_min_proj, query_max_proj, node_mins, node_edges,
         num_points,
@@ -123,17 +125,8 @@ def frustum_cull_lod_select(
     return _order(priority), sizes, visible
 
 
-def frustum_cull_lod_select_frames(
-    matrices, axes, query_min_proj, query_max_proj, node_mins, node_edges,
-    num_points,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """F frames in one K5 launch: (F, 4, 4) matrices, (F, A, 3) axes,
-    (F, A) projections -> ((F, K) orders, sizes, visible)."""
-    sizes, visible, priority = cull_lod(
-        matrices, axes, query_min_proj, query_max_proj, node_mins,
-        node_edges, num_points,
-    )
-    return _order(priority), sizes, visible
+# The JAX package's multi-frame name: the same function on (F, ...) inputs.
+frustum_cull_lod_select_frames = frustum_cull_lod_select
 
 
 # --- copied from point_cloud_viewer_tpu/ops/culling.py:100-186 -------------
@@ -231,14 +224,15 @@ def prep_frustum_frames(frustums, axis_capacity: int = 0, origin=None):
     zero is `origin` where one is given."""
     prep = [frustum_axes_and_projections(f, origin) for f in frustums]
     a_cap = max([int(axis_capacity)] + [len(p[0]) for p in prep])
-    mats, axs, qns, qxs = [], [], [], []
-    for f, (axes, qmin, qmax) in zip(frustums, prep):
-        ax, qn, qx = pad_cull_axes(axes, qmin, qmax, a_cap)
-        mats.append(local_clip_matrix(f.clip_from_query, origin))
-        axs.append(ax)
-        qns.append(qn)
-        qxs.append(qx)
-    return np.stack(mats), np.stack(axs), np.stack(qns), np.stack(qxs)
+    return _stack_frames(frustums, prep, a_cap, origin)
+
+
+def _stack_frames(frustums, prep, a_cap: int, origin=None):
+    """prep_frustum_frames' stacks from each frame's
+    frustum_axes_and_projections, padded to a_cap."""
+    padded = [pad_cull_axes(*p, a_cap) for p in prep]
+    mats = [local_clip_matrix(f.clip_from_query, origin) for f in frustums]
+    return (np.stack(mats),) + tuple(np.stack(col) for col in zip(*padded))
 
 
 # --- the session (culling.py:189-259) --------------------------------------
@@ -302,11 +296,15 @@ class DeviceCullSession:
 
             _ext.lib()
 
-    def _pad(self, axes, qmin, qmax):
-        a = len(axes)
-        if a > self.a_cap:  # grow once; next frames reuse the new width
+    def _grow(self, a: int) -> int:
+        """The width for a frame of `a` axes: a_cap, grown once to 2a
+        when a frame needs more (next frames reuse the new width)."""
+        if a > self.a_cap:
             self.a_cap = int(a * 2)
-        return pad_cull_axes(axes, qmin, qmax, self.a_cap)
+        return self.a_cap
+
+    def _pad(self, axes, qmin, qmax):
+        return pad_cull_axes(axes, qmin, qmax, self._grow(len(axes)))
 
     def _put(self, array: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(array, dtype=torch.float32, device=self.device)
@@ -365,16 +363,14 @@ class DeviceCullSession:
                 np.empty((0, k), bool),
             )
         with span("select.prep"):
-            need = max(
-                len(frustum_axes_and_projections(f)[0]) for f in frustums
-            )
-            if need > self.a_cap:
-                self.a_cap = int(need * 2)
-            frames = prep_frustum_frames(frustums, self.a_cap, self.origin)
+            prep = [frustum_axes_and_projections(f, self.origin)
+                    for f in frustums]
+            a_cap = self._grow(max(len(p[0]) for p in prep))
+            frames = _stack_frames(frustums, prep, a_cap, self.origin)
         with span("select.upload"):
             args = [self._put(a) for a in frames]
         with span("select.launch"):
-            order, sizes, visible = frustum_cull_lod_select_frames(
+            order, sizes, visible = frustum_cull_lod_select(
                 *args, self._mins, self._edges, self._num_points)
         with span("select.fetch"):
             out = (order.cpu().numpy(), sizes.cpu().numpy(),

@@ -15,6 +15,11 @@ dropped, two extreme corners an axis with the 8-corner fallback, the
 screen size from shared products) is held to `cull_lod_plain` bit for bit
 (NaN matching NaN) under hypothesis, over IEEE corner cases; a model
 without the fallback fails.
+
+The host prep's `math.sat.dedup_axes`, one vectorised pass in the port, is
+held byte for byte to the JAX package's loop: frustum, Obb and orbit axis
+sets, squared distances at eps, a sum whose order decides, a greedy chain
+and non-finite rows.
 """
 
 import numpy as np
@@ -24,11 +29,14 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 import jax.numpy as jnp
-from point_cloud_viewer_tpu.math.geometry import Frustum, Isometry, Perspective
+from point_cloud_viewer_tpu.math import sat as jax_sat
+from point_cloud_viewer_tpu.math.geometry import (
+    Frustum, Isometry, Obb, Perspective)
 from point_cloud_viewer_tpu.ops import culling as jax_culling
 from point_cloud_viewer_tpu.ops.culling_pallas import (
     frustum_cull_lod_select_pallas,
 )
+from point_cloud_viewer_tpu_torch.math import sat as port_sat
 from point_cloud_viewer_tpu_torch.ops import cull_cuda
 from point_cloud_viewer_tpu_torch.ops import culling
 
@@ -435,6 +443,91 @@ def test_session_step_frames_grows_and_handles_no_frames():
     ours.step_frames(frustums[:2])
     theirs.step_frames(frustums[:2])
     assert ours.a_cap == theirs.a_cap > 4
+
+
+# --- the host prep's dedup_axes, held byte for byte to the JAX loop ---------
+
+_UNIT = jax_sat.UNIT_AXES
+
+
+def _viewer_orbit(frames=60):
+    """A turn of the viewer's camera round a box: 800 x 600 at 45 degrees,
+    yawed about z and pitched by 60 degrees."""
+    pitch = Isometry.from_axis_angle([1, 0, 0], np.pi / 3)
+    out = []
+    for a in np.linspace(0.0, 2 * np.pi, frames, endpoint=False):
+        eye = Isometry.from_axis_angle(
+            [0, 0, 1], a + np.pi / 2,
+            translation=[120 * np.cos(a), 120 * np.sin(a), 60.0]).compose(pitch)
+        out.append(Frustum.new(eye, Perspective.from_fov(
+            800 / 600, np.pi / 4, 0.1, 10000.0)))
+    return out
+
+
+def _near(delta):
+    """An axis, and the same axis moved by delta along x, with either sign:
+    squared distances delta**2 (d1) and, for the flipped copy, d2."""
+    a = np.array([0.0, 0.0, 1.0])
+    b = a + [delta, 0.0, 0.0]
+    return np.stack([a, b, -a, -b])
+
+
+def _dedup_case(case):
+    """(candidate sets, rows the JAX loop keeps of each, or None).  The
+    default eps is 2**-52, so d = 2**-26 is a distance at eps."""
+    d = 2.0 ** -26
+    if case == "orbit":
+        return [f.intersector().separating_axes_with(_UNIT, _UNIT)
+                for f in _viewer_orbit()], None
+    if case == "axis_aligned_frustum":
+        eye = Isometry.from_axis_angle([0, 1, 0], 0.0, translation=[1, 2, 30])
+        f = Frustum.new(eye, Perspective.from_fov(1.3, 0.8, 0.5, 100.0))
+        return [f.intersector().separating_axes_with(_UNIT, _UNIT)], None
+    if case == "obb":
+        return [Obb(Isometry.from_axis_angle(axis, angle), [1.0, 2.0, 3.0])
+                .intersector().separating_axes_with(_UNIT, _UNIT)
+                for axis, angle in (([0, 0, 1], 0.0), ([0, 0, 1], np.pi / 4),
+                                    ([1, 2, 3], 0.7))], None
+    if case == "eps_under":  # delta**2 < eps: one kept of the four
+        return [_near(np.nextafter(d, 0.0))], [0]
+    if case == "eps_equal":  # delta**2 == eps is not under it
+        return [_near(d)], [0, 1]
+    if case == "eps_over":
+        return [_near(np.nextafter(d, 1.0))], [0, 1]
+    if case == "sum_order":  # |v|^2 < eps summed x, y, z in turn, not else
+        v = np.array([float.fromhex(h) for h in (
+            "0x1.fffffffffffffp-27", "0x1.fb6cd2320df73p-54",
+            "0x1.80d29ae5ea3bdp-53")])
+        return [np.stack([v, 2 * v])], [0]
+    if case == "chain":  # b near a and c, c not near a: a and c kept
+        return [np.array([[0.0, 0.0, 1.0], [0.8 * d, 0.0, 1.0],
+                          [1.6 * d, 0.0, 1.0]])], [0, 2]
+    if case == "single":
+        return [np.array([[0.6, 0.0, 0.8]])], [0]
+    if case == "empty":
+        return [np.empty((0, 3))], []
+    assert case == "inf"  # d1 = inf - inf squared = NaN, d2 = inf
+    return [np.array([[_INF, 0.0, 0.0], [_INF, 0.0, 0.0], [-_INF, 0.0, 0.0],
+                      [_INF, 0.0, 1.0], [0.0, 0.0, 1.0]])], None
+
+
+@pytest.mark.parametrize("case", [
+    "orbit", "axis_aligned_frustum", "obb", "eps_under", "eps_equal",
+    "eps_over", "sum_order", "chain", "single", "empty", "inf"])
+def test_dedup_axes_is_the_jax_loop(case):
+    sets, kept = _dedup_case(case)
+    dropped = False
+    for axes in sets:
+        with np.errstate(invalid="ignore"):
+            got = port_sat.dedup_axes(axes)
+            want = jax_sat.dedup_axes(axes)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert got.tobytes() == want.tobytes()
+        if kept is not None:
+            assert want.tobytes() == axes[kept].reshape(-1, 3).tobytes()
+        dropped |= len(want) < len(axes)
+    # Only a lone axis, none, and axes no finite distance joins keep all.
+    assert dropped == (case not in ("single", "empty", "inf"))
 
 
 def test_session_uploads_the_table_to_its_device(monkeypatch):
