@@ -2255,7 +2255,8 @@ def phase_query(wrappers: dict, tmp: str) -> None:
 
 def phase_query_mask() -> dict:
     """10c: K8 (csrc/query_mask.cu) on one QUERY_MASK_ROWS node of each
-    region, without and with two intervals (testing.query_mask_case):
+    region, without and with two intervals (testing.query_mask_case), then
+    on a node as stored (node_decode_readings):
     point_filter_mask bit-equal to the host; CUDA-event medians of the
     entry's round trip (pinned H2D, the kernel, D2H, on its own stream) and
     of the kernel alone (pcv_query_mask_launch on the uploaded node); host
@@ -2341,7 +2342,90 @@ def phase_query_mask() -> dict:
                 f"{entry_ms:.4f} ms; point_filter_mask {out[name]['mask_ms']:.3f}"
                 f" ms; the eager route's classes on the card "
                 f"{out[name]['eager_ms']:.3f} ms")
+    for encoding in ("u16", "f32"):
+        for kept in (0.01, 0.5):  # the interval keeps 0.8 of the box's rows
+            name = f"as stored {encoding}, {kept:.0%} kept"
+            out[name] = node_decode_readings(dev, encoding, kept / 0.8, n)
     return out
+
+
+def node_decode_readings(dev, encoding: str, share: float, n: int) -> dict:
+    """10c, K8 on a node as stored (pcv_query_decode_mask): n random rows
+    in `encoding` (u16 or f32) and an f32 intensity, written as node files
+    (testing.query_decode_node), a box over `share` of the node's x and an
+    intensity interval.  NodeDecode's batch equal to the host's
+    read_node_batch, masks and retain; CUDA-event medians of the round
+    trip (pinned H2D of the stored bytes, the kernel, the count, the kept
+    rows) and of the kernel alone; host ms of a node by NodeDecode (its
+    read, the round trip, the gather) and by the host's decode and K8's
+    f64 entry, which it replaces; bytes over the card's memory and the
+    kernel over its bound at 3.35 TB/s."""
+    import tempfile
+
+    import torch
+
+    from point_cloud_viewer_tpu_torch import testing
+    from point_cloud_viewer_tpu_torch.ops import _ext
+    from point_cloud_viewer_tpu_torch.query import device_filter as DF
+
+    tmp = tempfile.TemporaryDirectory()
+    cloud, query = testing.query_decode_node(tmp.name, encoding, n, seed=31,
+                                             share=share)
+    meta = cloud.node_meta("r")
+    enc = meta.position_encoding
+    route = DF.NodeDecode(query, [], dev)
+
+    def host_route():
+        return testing.query_decode_node_host(cloud, query, dev)
+
+    got, want = route.node_points(cloud, "r"), host_route()
+    if not (got.position.tobytes() == want.position.tobytes()
+            and all(got.attributes[a].tobytes() == want.attributes[a].tobytes()
+                    for a in want.attributes)):
+        raise AssertionError(f"K8 as stored ({encoding}): the kept rows "
+                             f"differ from the host's")
+    kept = len(got)
+    plan = DF._CloudPlan(cloud, route.names, route.rest)
+    st = DF._take_staging(dev)
+    node = route._read(cloud, "r", plan, st)
+    route._round_trip(node, plan, st)  # fills st.node_args
+    in_bytes = DF._aligned(node.offsets[1] + node.sizes[1])
+    fma = int(DF._host_decode_fused(enc, n))
+    args = st.node_args.ctypes.data
+    lib = _ext.lib()
+
+    def kernel():
+        _ext.check(lib.pcv_query_decode_launch(
+            0, route.params_ptr, 1, int(enc), fma, args, args + 32, n,
+            st.dev_node.data_ptr(), st.dev_kept.data_ptr(),
+            st.scratch.data_ptr(), st.stream_ptr()),
+            "pcv_query_decode_launch")
+
+    with torch.cuda.device(dev), torch.cuda.stream(st.stream):
+        entry_ms = cuda_ms(lambda: route._round_trip(node, plan, st))
+        kernel_ms = cuda_ms(kernel)
+    DF._give_staging(st)
+    times = {"node_ms": [], "host_route_ms": []}
+    for _ in range(REPS):
+        for key, fn in (("node_ms", lambda: route.node_points(cloud, "r")),
+                        ("host_route_ms", host_route)):
+            t0 = time.perf_counter()
+            fn()
+            times[key].append((time.perf_counter() - t0) * 1e3)
+    nbytes = in_bytes + 8 + 29 * kept
+    bound_ms = nbytes / 3.35e12 * 1e3
+    r = {"rows": n, "kept": kept, "bytes": nbytes, "bound_ms": bound_ms,
+         "kernel_ms": kernel_ms, "entry_ms": entry_ms,
+         "node_ms": statistics.median(times["node_ms"]),
+         "host_route_ms": statistics.median(times["host_route_ms"])}
+    tmp.cleanup()
+    log(f"K8 as stored {encoding}, {kept} of {n} rows kept == host; {nbytes} "
+        f"B over the card's memory ({in_bytes} up), bound "
+        f"{bound_ms:.6f} ms at 3.35 TB/s; kernel {kernel_ms:.4f} ms "
+        f"({kernel_ms / bound_ms:.2f}x the bound); round trip "
+        f"{entry_ms:.4f} ms; a node by NodeDecode {r['node_ms']:.3f} ms, "
+        f"by the host's decode and K8's f64 entry {r['host_route_ms']:.3f} ms")
+    return r
 
 
 # --- phase 11: the x-ray quadtree path -----------------------------------

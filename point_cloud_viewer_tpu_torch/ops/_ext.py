@@ -41,6 +41,11 @@ LOOKBACK_TILE = 8192
 QUERY_MASK_MAX_INTERVALS = 8
 QUERY_MASK_PARAMS = 16 + 2 * QUERY_MASK_MAX_INTERVALS
 
+# Rows a tile of K8's compacting kernel (csrc/query_mask.cu kCompactTile):
+# a node's scratch holds 2 + one state a tile u64 words.  lib() checks the
+# library agrees.
+QUERY_DECODE_TILE = 1024
+
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -96,6 +101,23 @@ _SIGNATURES = {
     "pcv_query_mask": (
         [c_int, c_void_p, c_int, c_longlong, c_void_p, c_void_p, c_void_p,
          c_void_p, c_void_p],
+        c_int,
+    ),
+    "pcv_query_decode_tile_rows": ([], c_int),
+    "pcv_query_decode_launch": (
+        [c_int, c_void_p, c_int, c_int, c_int, c_void_p, c_void_p,
+         c_longlong, c_void_p, c_void_p, c_void_p, c_void_p],
+        c_int,
+    ),
+    "pcv_query_decode_mask": (
+        [c_int, c_void_p, c_int, c_int, c_int, c_void_p, c_void_p,
+         c_longlong, c_longlong, c_void_p, c_void_p, c_void_p, c_void_p,
+         c_void_p, c_void_p],
+        c_int,
+    ),
+    "pcv_read_node_files": (
+        [c_int, c_int, c_char_p, c_void_p, c_void_p, c_longlong, c_void_p,
+         c_longlong, c_void_p],
         c_int,
     ),
     "pcv_web_mercator_project": (
@@ -201,6 +223,11 @@ def lib() -> ctypes.CDLL:
                 raise RuntimeError(
                     f"{LIB_PATH}: K8's argument struct does not match "
                     "QUERY_MASK_PARAMS / QUERY_MASK_MAX_INTERVALS")
+            if handle.pcv_query_decode_tile_rows() != QUERY_DECODE_TILE:
+                raise RuntimeError(
+                    f"{LIB_PATH}: K8's compacting tile "
+                    f"{handle.pcv_query_decode_tile_rows()} != "
+                    f"QUERY_DECODE_TILE {QUERY_DECODE_TILE}")
             _lib = handle
         return _lib
 

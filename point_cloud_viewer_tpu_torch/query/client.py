@@ -13,10 +13,15 @@ filter runs on the card by default (`device_filter=True`, `device="cuda"`),
 as the port's build derives on the card by default.  Each worker masks
 one node at a time through query/device_filter.py (for a box, OBB, frustum
 or Web Mercator tile, one K8 round trip on a stream of its own with the
-GIL released); `filter_stats` tallies the rows.  While a torch.profiler session
+GIL released); `filter_stats` tallies the rows.  An octree node that K8
+would mask, and that is not fully inside the region, is decoded on the card
+too (device_filter.NodeDecode): the worker reads its files as stored and
+gets back only the rows the query keeps.  While a torch.profiler session
 runs, `stream` records the spans `query.select_nodes` (the node list, on the
 caller's thread), `query.decode` and `query.mask` (each node, in the
-workers) and the counter `query.nodes` (utils/progress.span).
+workers) and the counters `query.nodes` (jobs a query), `query.decode.card`
+and `query.decode.host` (nodes whose positions the card alone or the host
+decoded; utils/progress.span).
 """
 
 from __future__ import annotations
@@ -173,6 +178,11 @@ class PointCloudClient:
                     for node_id in cloud.nodes_in_location(query.location):
                         jobs.append((cloud, node_id, False))
         count("query.nodes", len(jobs))
+        card = None
+        if self.device_filter:
+            from .device_filter import node_decode
+
+            card = node_decode(query, self.clouds, self.device)
 
         out: "queue.Queue" = queue.Queue(maxsize=self.buffer_size)
         cancel = threading.Event()
@@ -199,6 +209,11 @@ class PointCloudClient:
                     if job is None:
                         break
                     cloud, node_id, fully = job
+                    if card is not None and card.takes(cloud, fully):
+                        rebatcher.push(card.node_points(
+                            cloud, node_id, stats=self.filter_stats))
+                        continue
+                    count("query.decode.host", 1)
                     with span("query.decode"):
                         batch = cloud.points_in_node(
                             node_id, attributes=query.attributes)

@@ -68,6 +68,23 @@ Both feed the same host refinement.  While a torch.profiler session runs,
 the counters `query.mask.fused` and `query.mask.eager` count the calls of
 each (utils/progress.count).
 
+The query client's octree nodes take a third route, `NodeDecode`, where
+K8 would mask them, they are not fully inside the region and the octree is
+a directory: one C call (pcv_read_node_files, the GIL released) reads the
+node's position file and each interval's column as stored straight into a
+staging set's pinned buffer and its other attribute files into a reused
+host buffer; a second (pcv_query_decode_mask) uploads the stored bytes,
+decodes each row on the card bit-equal to ops/codec.decode_positions as
+the host runs it for that node, classifies it by K8's rules, compacts the
+rows it keeps in row order and copies back only those: their row index,
+position and code.  The batch is the fetched positions with the attributes
+gathered at the fetched rows.  A WebMercatorRect's band is refined on the
+fetched rows; an OBB's or a frustum's needs the whole batch (see 3.
+above), so the host then decodes the node from the staged bytes and
+refines as above.  The counters `query.decode.card` and
+`query.decode.host` count the client's nodes whose positions only the card
+decoded and those the host decoded.
+
 `point_filter_mask` returns None only where a query is host-only by
 nature: a location type it does not know, or a filter attribute that is
 missing or not numeric (the host path then raises its KeyError or
@@ -76,19 +93,25 @@ ValueError).  A failure on the card raises; nothing falls back.
 
 from __future__ import annotations
 
+import errno
+import os
 import threading
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from ..core.attributes import AttributeDataType, attribute_extension
+from ..core.points_batch import PointsBatch
 from ..device import resolve_device
+from ..io.node_io import NodeNotFound, OnDiskDataProvider, parse_attribute_bytes
 from ..math.geometry import Aabb, Frustum, Obb
 from ..math.web_mercator import WebMercatorRect
 from ..math.web_mercator_device import (_calibrated_delta, classify_rect,
                                         wmc_consts)
 from ..ops import _ext
-from ..utils.progress import count
+from ..ops.codec import PositionEncoding, decode_positions
+from ..utils.progress import count, span
 from .location import AllPoints, GeometryLocation
 
 _E_REL = 2.0 ** -49      # E = _E_REL * S + _E_ABS: see the module docstring
@@ -326,13 +349,52 @@ def _k8_params(kind, geometry, lows, highs, delta: float = 0.0) -> np.ndarray:
 class _Staging:
     """One K8 call's buffers and stream on a card: pinned host memory for
     the input values and the codes, their device twins, grown to the
-    largest node seen, and a stream of its own."""
+    largest node seen, and a stream of its own; for a node as stored
+    (reserve_node), its bytes, its kept rows and the compacting kernel's
+    scratch."""
 
     def __init__(self, dev: torch.device) -> None:
         self.dev = dev
         self.stream = torch.cuda.Stream(dev)
         self.values = self.rows = 0
         self.host_in = self.dev_in = self.host_codes = self.dev_codes = None
+        self.node_bytes = self.node_rows = self.files_bytes = 0
+        self.host_node = self.dev_node = self.host_kept = self.dev_kept = None
+        self.node_view = self.kept_view = self.host_files = self.scratch = None
+        self.node_args = None
+
+    def reserve_node(self, in_bytes: int, rows: int, files: int = 0) -> None:
+        """Room for in_bytes of a node as stored, for the kept rows of a
+        node of `rows` rows and for `files` bytes of its other attribute
+        files (pageable host memory: reused, so a read faults in no fresh
+        pages).  node_view, kept_view and host_files are numpy arrays over
+        the host buffers."""
+        if in_bytes > self.node_bytes:
+            self.host_node, self.dev_node = self._pair(in_bytes)
+            self.node_view = self.host_node.numpy()
+            self.node_bytes = in_bytes
+        if rows > self.node_rows:
+            self.host_kept, self.dev_kept = self._pair(_decode_layout(rows)[3])
+            self.kept_view = self.host_kept.numpy()
+            self.scratch = self._zeroed(_decode_scratch(rows))
+            self.node_rows = rows
+        if self.node_args is None:
+            self.node_args = np.zeros(4 + 2 * _ext.QUERY_MASK_MAX_INTERVALS,
+                                      dtype=np.float64)
+        if files > self.files_bytes:
+            self.host_files = np.empty(files, dtype=np.uint8)
+            self.files_bytes = files
+
+    def _pair(self, nbytes: int) -> tuple:
+        """nbytes of pinned host memory and of device memory (u8)."""
+        return (torch.empty(nbytes, dtype=torch.uint8, pin_memory=True),
+                torch.empty(nbytes, dtype=torch.uint8, device=self.dev))
+
+    def _zeroed(self, words: int) -> torch.Tensor:
+        """Device int64 zeros, cleared on the staging stream: the one the
+        compacting kernel runs on, which leaves its scratch zero."""
+        with torch.cuda.stream(self.stream):
+            return torch.zeros(words, dtype=torch.int64, device=self.dev)
 
     def reserve(self, values: int, rows: int) -> None:
         if values > self.values:
@@ -403,3 +465,326 @@ def _k8_classes(kind, geometry, pos2d, names, intervals, attributes,
                 None if kind is Aabb else (codes & 2) != 0)
     finally:
         _give_staging(staging)
+
+
+# --- K8 on the nodes as stored ------------------------------------------------
+
+# The interval columns K8 reads as stored (csrc/query_mask.cu ColumnType):
+# the scalar types that widen to f64 exactly.
+_K8_COLUMN = {
+    AttributeDataType.F64: 0, AttributeDataType.F32: 1,
+    AttributeDataType.U8: 2, AttributeDataType.U16: 3,
+    AttributeDataType.U32: 4, AttributeDataType.I8: 5,
+    AttributeDataType.I16: 6, AttributeDataType.I32: 7,
+}
+
+# ops/codec.decode_positions takes its native routine from this many rows of
+# a u8 or u16 node.
+_NATIVE_DECODE_ROWS = 10_000
+
+
+def _decode_layout(n: int) -> tuple:
+    """Byte offsets of the kept rows of a node of n rows
+    (pcv_query_decode_launch's dev_out): positions, row indices, codes, and
+    the size; the count is at 0."""
+    return 16, 16 + 24 * n, 16 + 28 * n, 16 + 29 * n
+
+
+def _decode_scratch(n: int) -> int:
+    """u64 words of the compacting kernel's scratch for n rows."""
+    return 2 + -(-n // _ext.QUERY_DECODE_TILE)
+
+
+def _aligned(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def _host_decode_fused(encoding: PositionEncoding, n: int) -> bool:
+    """Whether the host decodes a node of n rows in `encoding` with one
+    rounding of t * edge + cube_min: ops/codec.decode_positions takes its
+    native routine (native/pcv_native.cpp) for a u8 or u16 node of
+    _NATIVE_DECODE_ROWS rows or more where the library loads, and g++
+    contracts the routine's multiply-add into an FMA where the CPU has one;
+    numpy's expression rounds twice."""
+    from .. import native
+
+    if (encoding not in (PositionEncoding.UINT8, PositionEncoding.UINT16)
+            or n < _NATIVE_DECODE_ROWS or native.lib() is None):
+        return False
+    global _native_contracts
+    if _native_contracts is None:
+        # A fixed u16 node: 9,398 of its 30,000 values tell the two apart.
+        enc = (np.arange(30_000) * 7919 % 65536).astype("<u2").reshape(-1, 3)
+        cube_min = np.array([-617.3, 123.4, 1000.5])
+        edge = 1234.5678901
+        fused = native.decode_positions(enc, cube_min, edge)
+        if fused is None:
+            return False
+        _native_contracts = not np.array_equal(
+            fused, enc.astype(np.float64) / 65535.0 * edge + cube_min)
+    return _native_contracts
+
+
+_native_contracts: Optional[bool] = None
+
+
+def node_decode(query, clouds, device) -> Optional["NodeDecode"]:
+    """K8's route for the nodes of `query` as stored, or None where they
+    stay on the host's decode: `device` is not a card, the region is not a
+    box, OBB, frustum or WebMercatorRect, there are more than
+    QUERY_MASK_MAX_INTERVALS intervals, or an interval is on an attribute
+    the query does not fetch.  Of `clouds`, the route takes the octrees in
+    a directory that hold every attribute the query fetches, its interval
+    columns of _K8_COLUMN's types."""
+    if device is None or resolve_device(device).type != "cuda":
+        return None
+    geometry = getattr(query.location, "geometry", None)
+    if not (isinstance(query.location, GeometryLocation)
+            and type(geometry) in _K8_KIND):
+        return None
+    names = sorted(query.filter_intervals)
+    if len(names) > _ext.QUERY_MASK_MAX_INTERVALS:
+        return None
+    if query.attributes is None or not set(names) <= set(query.attributes):
+        return None
+    return NodeDecode(query, clouds, resolve_device(device))
+
+
+class _CloudPlan:
+    """What NodeDecode needs of one cloud for every node: its directory
+    (`prefix`), its files' suffixes (NUL-terminated; positions and interval
+    columns first), each file's bytes a row but the positions', each
+    interval column's dtype and K8 type code and each other attribute's
+    data type."""
+
+    def __init__(self, cloud, names, rest) -> None:
+        types = cloud.attribute_data_types
+        self.prefix = cloud.data_provider.stem("")
+        self.suffixes = ["." + attribute_extension(a) + "\0"
+                         for a in ["position", *names, *rest]]
+        self.dtypes = [types[m].numpy_dtype.newbyteorder("<") for m in names]
+        self.codes = [_K8_COLUMN[types[m]] for m in names]
+        self.others = [types[a] for a in rest]
+        self.row_bytes = [types[a].size_bytes for a in [*names, *rest]]
+
+
+class NodeDecode:
+    """K8 on the nodes of one query as stored (see the module docstring):
+    `takes` says whether a node goes this way, `node_points` reads, decodes
+    and masks it -> the node's batch, the host route's to the bit."""
+
+    def __init__(self, query, clouds, dev: torch.device) -> None:
+        from ..octree.octree import Octree
+
+        self.dev = dev
+        self.attributes = list(dict.fromkeys(query.attributes))
+        self.names = sorted(query.filter_intervals)
+        self.rest = [a for a in self.attributes if a not in self.names]
+        geometry = query.location.geometry
+        self.geometry = geometry
+        self.kind = type(geometry)
+        self.code = _K8_KIND[self.kind]
+        delta = (_calibrated_delta(dev, fused=True)
+                 if self.kind is WebMercatorRect else 0.0)
+        intervals = query.filter_intervals
+        self.params = _k8_params(
+            self.kind, geometry,
+            [intervals[name].lower_bound for name in self.names],
+            [intervals[name].upper_bound for name in self.names], delta)
+        self.params_ptr = self.params.ctypes.data
+        self.clouds = set()
+        self.plans: Dict[int, _CloudPlan] = {}
+        for cloud in clouds:
+            types = getattr(cloud, "attribute_data_types", {})
+            if (isinstance(cloud, Octree)
+                    and isinstance(cloud.data_provider, OnDiskDataProvider)
+                    and all(a in types for a in self.attributes)
+                    and all(types[m] in _K8_COLUMN for m in self.names)):
+                self.clouds.add(id(cloud))
+
+    def takes(self, cloud, fully_inside: bool) -> bool:
+        return not fully_inside and id(cloud) in self.clouds
+
+    def node_points(self, cloud, node_id, stats: Optional[FilterStats] = None
+                    ) -> PointsBatch:
+        """The node's points in the query, under the spans `query.decode`
+        (the read, and the host's decode where the band needs it) and
+        `query.mask` (the round trip, the refinement and the gather)."""
+        count("query.mask.fused", 1)
+        plan = self.plans.get(id(cloud))
+        if plan is None:
+            plan = self.plans[id(cloud)] = _CloudPlan(cloud, self.names,
+                                                      self.rest)
+        staging = _take_staging(self.dev)
+        try:
+            with span("query.decode"):
+                node = self._read(cloud, node_id, plan, staging)
+            with span("query.mask"):
+                pos, rows, codes = self._round_trip(node, plan, staging)
+                keep = None if self.kind is Aabb else (codes & 2) != 0
+                uncertain = 0 if keep is None else int(np.count_nonzero(keep))
+                refined = 0
+                if uncertain and self.kind is WebMercatorRect:
+                    refined = uncertain
+                    band = keep
+                    keep = (codes & 1) != 0
+                    keep[band] = self.geometry.contains(pos[band])
+            if uncertain and refined == 0:
+                # The whole batch, as the host computed it (see the module
+                # docstring), from the bytes still staged.
+                count("query.decode.host", 1)
+                with span("query.decode"):
+                    meta = node.meta
+                    encoding = meta.position_encoding
+                    stored = staging.node_view[:node.sizes[0]].view(
+                        encoding.numpy_dtype).reshape(-1, 3)
+                    whole = decode_positions(stored, meta.cube_min,
+                                             meta.edge_length, encoding)
+                refined = node.n
+                with span("query.mask"):
+                    band = keep
+                    keep = (codes & 1) != 0
+                    keep[band] = self.geometry.contains(whole)[rows[band]]
+            else:
+                count("query.decode.card", 1)
+            with span("query.mask"):
+                if stats is not None:
+                    stats.add(node.n, uncertain, refined)
+                if keep is not None and uncertain:
+                    pos, rows = pos[keep], rows[keep]
+                return self._gather(node, plan, pos, rows, staging)
+        finally:
+            _give_staging(staging)
+
+    def _read(self, cloud, node_id, plan: _CloudPlan,
+              staging: _Staging) -> "_StagedNode":
+        """The node's position file and interval columns as stored into
+        staging's pinned buffer, its other attribute files into staging's
+        host buffer, in one pcv_read_node_files call (the GIL released
+        once)."""
+        meta = cloud.node_meta(node_id)
+        name = str(node_id)
+        staged = 1 + len(self.names)
+        row_bytes = 3 * meta.position_encoding.bytes_per_coordinate
+        rows = meta.num_points
+        sizes, offsets = _read_node_files(
+            "".join(plan.prefix + name + s for s in plan.suffixes),
+            [rows * row_bytes, *(rows * b for b in plan.row_bytes)], staged,
+            staging)
+        n = sizes[0] // row_bytes
+        if sizes[0] != n * row_bytes:
+            raise ValueError(f"node {name}: {sizes[0]} bytes of positions "
+                             f"are not whole rows")
+        staging.reserve_node(0, n)
+        return _StagedNode(meta, n, sizes, offsets)
+
+    def _round_trip(self, node: "_StagedNode", plan: _CloudPlan,
+                    staging: _Staging) -> tuple:
+        """pcv_query_decode_mask on the staged node -> the kept rows'
+        (k, 3) positions, (k,) i32 row indices and (k,) u8 codes."""
+        meta = node.meta
+        encoding = meta.position_encoding
+        n, k = node.n, len(self.names)
+        # The node's cube_min and edge, then the columns' (type, offset).
+        args = staging.node_args
+        args[:3] = meta.cube_min
+        args[3] = meta.edge_length
+        specs = args[4:].view(np.int64)
+        specs[0:2 * k:2] = plan.codes
+        specs[1:2 * k:2] = node.offsets[1:1 + k]
+        in_bytes = _aligned(node.offsets[k] + node.sizes[k])
+        with _ext.device_guard(staging.dev_node):
+            _ext.check(_ext.lib().pcv_query_decode_mask(
+                self.code, self.params_ptr, k, int(encoding),
+                int(_host_decode_fused(encoding, n)), args.ctypes.data,
+                args.ctypes.data + 32, n, in_bytes,
+                staging.host_node.data_ptr(), staging.dev_node.data_ptr(),
+                staging.dev_kept.data_ptr(), staging.host_kept.data_ptr(),
+                staging.scratch.data_ptr(), staging.stream_ptr()),
+                "pcv_query_decode_mask")
+        out = staging.kept_view
+        kept = int(out[:8].view(np.int64)[0])
+        at_pos, at_rows, at_codes, _ = _decode_layout(n)
+        return (out[at_pos:at_pos + 24 * kept].view(np.float64)
+                .reshape(kept, 3).copy(),
+                out[at_rows:at_rows + 4 * kept].view(np.int32).copy(),
+                out[at_codes:at_codes + kept].copy())
+
+    def _gather(self, node: "_StagedNode", plan: _CloudPlan, pos, rows,
+                staging: _Staging) -> PointsBatch:
+        """The batch: the kept positions, each attribute at the kept rows
+        (from the staged bytes, which it copies)."""
+        attributes = {}
+        for i, m in enumerate(self.names):
+            at, size = node.offsets[1 + i], node.sizes[1 + i]
+            attributes[m] = staging.node_view[at:at + size].view(
+                plan.dtypes[i])
+        staged = 1 + len(self.names)
+        for i, a in enumerate(self.rest):
+            at, size = node.offsets[staged + i], node.sizes[staged + i]
+            attributes[a] = parse_attribute_bytes(
+                staging.host_files[at:at + size], plan.others[i])
+        for a, values in attributes.items():
+            if len(values) != node.n:
+                raise ValueError(f"attribute '{a}' has {len(values)} "
+                                 f"entries, expected {node.n}")
+            attributes[a] = values[rows]
+        return PointsBatch(position=pos, attributes=attributes)
+
+
+class _StagedNode:
+    """A node read into a staging set: its meta, n rows, and each file's
+    size and byte offset in its buffer (positions and interval columns in
+    the pinned one, the other attributes in the host one)."""
+
+    __slots__ = ("meta", "n", "sizes", "offsets")
+
+    def __init__(self, meta, n: int, sizes, offsets) -> None:
+        self.meta = meta
+        self.n = n
+        self.sizes = sizes
+        self.offsets = offsets
+
+
+def _layout(sizes, staged: int) -> tuple:
+    """Byte offsets of a node's files, as pcv_read_node_files lays them
+    out for files of these sizes: slots of size + 1 bytes rounded up to
+    16, the first `staged` one after another in the pinned buffer, the
+    rest in the host buffer -> (offsets, the bytes each buffer needs)."""
+    offsets, need = [], [0, 0]
+    for i, size in enumerate(sizes):
+        g = 0 if i < staged else 1
+        offsets.append(need[g])
+        need[g] += _aligned(size + 1)
+    return offsets, need
+
+
+def _read_node_files(paths: str, expect, staged: int, staging) -> tuple:
+    """pcv_read_node_files of the files `paths` names (NUL-terminated), of
+    the sizes `expect` the node's meta gives, into staging's buffers; again
+    when they are too small or a file is larger -> (sizes, offsets).
+    Raises NodeNotFound for a missing file and OSError for another failure
+    to read one."""
+    count = len(expect)
+    out = np.zeros(2 * count + 2, dtype=np.int64)
+    sizes = np.array(expect, dtype=np.int64)
+    encoded = paths.encode()
+    for _ in range(3):
+        status = _ext.lib().pcv_read_node_files(
+            count, staged, encoded, sizes.ctypes.data,
+            staging.host_node.data_ptr() if staging.node_bytes else None,
+            staging.node_bytes,
+            staging.host_files.ctypes.data if staging.files_bytes else None,
+            staging.files_bytes, out.ctypes.data)
+        if status == 0:
+            return out[:count].tolist(), out[count:2 * count].tolist()
+        if status < 0:
+            path = paths.split("\0")[int(np.flatnonzero(out[:count] == -1)[0])]
+            if -status == errno.ENOENT:
+                raise NodeNotFound(path)
+            raise OSError(-status, os.strerror(-status), path)
+        sizes = np.maximum(sizes, out[:count])
+        need = _layout(sizes.tolist(), staged)[1]
+        staging.reserve_node(need[0], 0, need[1])
+    raise OSError(f"{paths.split(chr(0))[0]}: the node's files grew while "
+                  f"being read")

@@ -19,6 +19,7 @@ the port.
 
 from __future__ import annotations
 
+import os
 import re
 import time
 
@@ -205,6 +206,153 @@ def query_mask_host(location, positions, intervals, attributes) -> np.ndarray:
     for name, interval in intervals.items():
         keep = keep & interval.contains(attributes[name])
     return keep
+
+
+# query_decode_octree's stored encodings, by the resolution that gives each
+# over its 40 m site (ops/codec.position_encoding_for).
+QUERY_DECODE_RESOLUTIONS = {"u8": 0.5, "u16": 0.001, "f32": 1e-5,
+                            "f64": 1e-9}
+# Its scalar attributes beside colour and intensity, one of each column
+# type K8 reads as stored, and a u64 one that it does not.
+QUERY_DECODE_COLUMNS = {"a_u8": "u1", "a_u16": "<u2", "a_u32": "<u4",
+                        "a_i8": "i1", "a_i16": "<i2", "a_i32": "<i4",
+                        "a_f64": "<f8", "a_u64": "<u8"}
+# A point of the site, in degrees and metres: the ECEF frame's east, north
+# and up there are the site's axes.
+QUERY_DECODE_SITE = (48.8566, 2.3522, 35.0)
+
+
+def query_decode_octree(directory: str, encoding: str, seed: int = 5):
+    """An octree of 80,000 points over a 40 m ECEF site (half of them in its
+    lowest octant), built on the host into `directory` and stored in
+    `encoding` (a key of QUERY_DECODE_RESOLUTIONS): a root of 10,004 rows,
+    one child of 39,345 and seven under 10,000, so u8 and u16 nodes lie on
+    both sides of ops/codec's native decode.  Colour, intensity (NaN and
+    0.2, 0.6 sprinkled in) and QUERY_DECODE_COLUMNS, the latter registered
+    in the returned Octree's attribute_data_types (an octree's meta records
+    only colour and intensity)."""
+    from .core.attributes import AttributeDataType
+    from .core.points_batch import PointsBatch
+    from .math import wgs84
+    from .octree.builder import build_octree
+    from .octree.octree import Octree
+
+    rng = np.random.default_rng(seed)
+    n = 80_000
+    local = rng.random((n, 3)) * 40.0 - 20.0
+    local[:n // 2] = rng.random((n // 2, 3)) * 20.0 - 20.0
+    lat, lon, alt = QUERY_DECODE_SITE
+    frame = wgs84.local_frame_from_lat_lng(lat, lon)
+    ecef = frame.inverse().transform_points(local + [0.0, 0.0, alt])
+    intensity = rng.random(n).astype(np.float32)
+    intensity[::13] = 0.2
+    intensity[7::13] = 0.6
+    intensity[5::101] = np.nan
+    attributes = {"color": rng.integers(0, 256, (n, 3), dtype=np.uint8),
+                  "intensity": intensity}
+    for name, dtype in QUERY_DECODE_COLUMNS.items():
+        attributes[name] = rng.integers(0, 100, n).astype(dtype)
+    build_octree(directory, QUERY_DECODE_RESOLUTIONS[encoding],
+                 PointsBatch(position=ecef, attributes=attributes),
+                 use_device=False)
+    octree = Octree.from_directory(directory)
+    for name, dtype in QUERY_DECODE_COLUMNS.items():
+        octree.attribute_data_types[name] = AttributeDataType.from_array(
+            np.zeros(1, dtype=dtype))
+    return octree
+
+
+def query_decode_regions(octree) -> dict:
+    """Regions of each K8 kind over query_decode_octree's site, with a face
+    through a point p0 of its root node as decoded: a box [c - e, c + e]
+    and an OBB (no rotation) and an orthographic frustum over the same box,
+    with c = p0 - (4, 0, 0) and e = (4, 6, 5), so p0 and the rows that share
+    its x lie on a face, exactly (x - c is exactly 4); and a WebMercatorRect
+    of about 80 m whose north-west corner is p0's projection.  -> {kind:
+    location}."""
+    from .math.geometry import Aabb, Frustum, Isometry, Obb
+    from .math.web_mercator import (WebMercatorCoord, WebMercatorRect,
+                                    ecef_to_web_mercator)
+    from .octree.node_id import NodeId
+    from .query.location import location_for
+
+    p0 = octree.points_in_node(NodeId.root(), attributes=[]).position[17]
+    c = p0 - [4.0, 0.0, 0.0]
+    e = np.array([4.0, 6.0, 5.0])
+    ortho = np.diag([0.25, 1.0 / 6.0, 0.2, 1.0])
+    ortho[:3, 3] = -ortho.diagonal()[:3] * c
+    nw = ecef_to_web_mercator(p0[None])[0]
+    rect = WebMercatorRect(WebMercatorCoord(nw), WebMercatorCoord(nw + 2e-6))
+    return {"box": location_for(Aabb(c - e, c + e)),
+            "obb": location_for(Obb(Isometry(np.eye(3), c), e)),
+            "frustum": location_for(Frustum.from_matrix4(ortho)),
+            "web_mercator": location_for(rect)}
+
+
+def query_decode_intervals(k: int) -> dict:
+    """k intervals (0, 1 or 8) on query_decode_octree's attributes:
+    intensity in [0.2, 0.6], then each K8 column type of
+    QUERY_DECODE_COLUMNS in [10, 90]."""
+    from .math.intervals import ClosedInterval
+
+    names = ["intensity"] + [m for m in QUERY_DECODE_COLUMNS if m != "a_u64"]
+    return {m: (ClosedInterval(0.2, 0.6) if m == "intensity"
+                else ClosedInterval(10.0, 90.0)) for m in names[:k]}
+
+
+def query_decode_node(directory: str, encoding: str, n: int, seed: int,
+                      share: float):
+    """One node of n random rows stored in `encoding` ("u16" or "f32")
+    under `directory` as r.xyz, r.rgb and r.intensity, in a 40 m cube in
+    ECEF, and a query of its colour and intensity in a box over `share` of
+    the cube's x with intensity in [0.1, 0.9] -> (a cloud NodeDecode reads
+    it from, the PointQuery)."""
+    import types
+
+    from .core.attributes import AttributeDataType
+    from .io.node_io import OnDiskDataProvider, write_node_files
+    from .math.geometry import Aabb
+    from .math.intervals import ClosedInterval
+    from .octree.octree import NodeMeta
+    from .ops.codec import PositionEncoding
+    from .query.point_query import PointQuery
+
+    rng = np.random.default_rng(seed)
+    if encoding == "u16":
+        enc = PositionEncoding.UINT16
+        stored = rng.integers(0, 65536, (n, 3)).astype("<u2")
+    else:
+        enc = PositionEncoding.FLOAT32
+        stored = rng.random((n, 3)).astype("<f4")
+    write_node_files(os.path.join(directory, "r"), stored, {
+        "color": rng.integers(0, 256, (n, 3), dtype=np.uint8),
+        "intensity": rng.random(n).astype("<f4")})
+    meta = NodeMeta(n, enc, np.array([4.2e6, 1.7e5, 4.8e6]), 40.0)
+    node = types.SimpleNamespace(
+        node_meta=lambda node_id: meta,
+        data_provider=OnDiskDataProvider(directory),
+        attribute_data_types={"color": AttributeDataType.U8VEC3,
+                              "intensity": AttributeDataType.F32})
+    query = PointQuery(
+        attributes=["color", "intensity"],
+        location=Aabb(meta.cube_min - 1.0,
+                      meta.cube_min + [40.0 * share, 41.0, 41.0]),
+        filter_intervals={"intensity": ClosedInterval(0.1, 0.9)})
+    return node, query
+
+
+def query_decode_node_host(node, query, device=None):
+    """query_decode_node's node by the host's route: read_node_batch, then
+    the host's masks (or K8's f64 entry on `device`), then retain."""
+    from .io.node_io import read_node_batch
+
+    meta = node.node_meta("r")
+    batch = read_node_batch(node.data_provider, "r",
+                            node.attribute_data_types,
+                            meta.position_encoding, meta.cube_min,
+                            meta.edge_length)
+    return query.filter_batch(batch, use_device=device is not None,
+                              device=device)
 
 
 def kernel_name(key: str) -> str:

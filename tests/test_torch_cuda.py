@@ -1058,6 +1058,179 @@ def test_k8_seven_threads_match_one(cuda, monkeypatch):
             np.testing.assert_array_equal(mask, want[j])
 
 
+# --- K8 on the client's nodes as stored ---------------------------------------
+
+
+@pytest.fixture(scope="module")
+def decode_octrees(tmp_path_factory):
+    """testing.query_decode_octree in each stored encoding."""
+    from point_cloud_viewer_tpu_torch import testing
+
+    return {enc: testing.query_decode_octree(
+        str(tmp_path_factory.mktemp(f"octree_{enc}")), enc)
+        for enc in testing.QUERY_DECODE_RESOLUTIONS}
+
+
+def _decode_query(octree, kind, k, attributes=None):
+    from point_cloud_viewer_tpu_torch import testing
+    from point_cloud_viewer_tpu_torch.query.point_query import PointQuery
+
+    return PointQuery(
+        attributes=attributes or ["color", "intensity",
+                                  *testing.QUERY_DECODE_COLUMNS],
+        location=testing.query_decode_regions(octree)[kind],
+        filter_intervals=testing.query_decode_intervals(k))
+
+
+def _host_node(octree, query, node_id, device=None):
+    """A node by today's route: read_node_batch, then the host's masks (or
+    K8's f64 entry on `device`) and retain."""
+    batch = octree.points_in_node(node_id, attributes=query.attributes)
+    return query.filter_batch(batch, use_device=device is not None,
+                              device=device)
+
+
+def _assert_batches_equal(got, want):
+    assert got.position.dtype == want.position.dtype == np.float64
+    assert got.position.tobytes() == want.position.tobytes()
+    assert list(got.attributes) == list(want.attributes)
+    for name, values in want.attributes.items():
+        assert got.attributes[name].dtype == values.dtype, name
+        assert got.attributes[name].shape == values.shape, name
+        assert got.attributes[name].tobytes() == values.tobytes(), name
+
+
+def _decode_counters(fn):
+    """fn() under a profiler session -> (its result, the counters
+    query.decode.card and query.decode.host)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from point_cloud_viewer_tpu_torch.utils import progress
+
+    progress.reset_span_totals()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = fn()
+    totals = progress.span_totals()
+    progress.reset_span_totals()
+    return out, tuple(totals.get(name, [0])[0] for name in (
+        "query.decode.card", "query.decode.host"))
+
+
+@pytest.mark.parametrize("k", [0, 1, 8])
+@pytest.mark.parametrize("kind", ["box", "obb", "frustum", "web_mercator"])
+@pytest.mark.parametrize("encoding", ["u8", "u16", "f32", "f64"])
+def test_k8_node_decode_matches_host(cuda, monkeypatch, decode_octrees,
+                                     encoding, kind, k):
+    """Every node decoded, classified and compacted on the card: the host's
+    read_node_batch, masks and retain to the bit (positions, every
+    attribute, row order), and K8's f64 entry on the host's decode too; u8
+    and u16 nodes on both sides of the native decode's 10,000 rows; the
+    band of each kind refined (OBB and frustum on the host's decode)."""
+    from point_cloud_viewer_tpu_torch.query.device_filter import (
+        _host_decode_fused, node_decode)
+
+    DF = _fused_only(monkeypatch)
+    octree = decode_octrees[encoding]
+    query = _decode_query(octree, kind, k)
+    route = node_decode(query, [octree], cuda)
+    stats = DF.FilterStats()
+
+    def run():
+        return [route.node_points(octree, node_id, stats=stats)
+                for node_id in octree.node_ids]
+
+    got, (card, host) = _decode_counters(run)
+    sizes = set()
+    for node_id, batch in zip(octree.node_ids, got):
+        meta = octree.node_meta(node_id)
+        sizes.add(meta.num_points >= 10_000)
+        _assert_batches_equal(batch, _host_node(octree, query, node_id))
+        _assert_batches_equal(batch, _host_node(octree, query, node_id, cuda))
+    assert sizes == {False, True}
+    assert card + host == len(octree.node_ids)
+    if kind != "box":
+        assert stats.uncertain > 0
+    if kind in ("obb", "frustum"):
+        assert host > 0
+    else:
+        assert host == 0
+    if encoding in ("u8", "u16"):
+        print(encoding, "native decode contracted:",
+              _host_decode_fused(octree.node_meta(octree.node_ids[0])
+                                 .position_encoding, 10_000))
+
+
+def test_k8_node_decode_keeps_no_row_and_every_row(cuda, decode_octrees):
+    """A box away from the site keeps no row of the root, a box around the
+    site every row."""
+    from point_cloud_viewer_tpu_torch.math.geometry import Aabb
+    from point_cloud_viewer_tpu_torch.octree.node_id import NodeId
+    from point_cloud_viewer_tpu_torch.query.device_filter import node_decode
+    from point_cloud_viewer_tpu_torch.query.location import location_for
+
+    for encoding in ("u8", "f32"):
+        octree = decode_octrees[encoding]
+        lo, hi = octree.root_cube.min, octree.root_cube.max()
+        for box, kept in ((Aabb(hi + 1.0, hi + 2.0), 0),
+                          (Aabb(lo - 1.0, hi + 1.0), 10_004)):
+            query = _decode_query(octree, "box", 1)
+            query.location = location_for(box)
+            query.filter_intervals = {}
+            got = node_decode(query, [octree], cuda).node_points(
+                octree, NodeId.root())
+            assert len(got) == kept
+            _assert_batches_equal(got, _host_node(octree, query,
+                                                  NodeId.root()))
+
+
+@pytest.mark.parametrize("n", [1, 1_023, 1_024, 1_025, 99_999, 1_000_003])
+@pytest.mark.parametrize("encoding", ["u16", "f32"])
+def test_k8_node_decode_compacts_in_row_order(cuda, tmp_path, encoding, n):
+    """Synthetic nodes of up to ~1,000 look-back tiles: the kept rows in
+    row order, against the host's decode and masks, twice on the same
+    staging set (the kernel leaves its scratch zero)."""
+    from point_cloud_viewer_tpu_torch import testing
+    from point_cloud_viewer_tpu_torch.query import device_filter as DF
+
+    node, query = testing.query_decode_node(str(tmp_path), encoding, n,
+                                            seed=n, share=0.6)
+    route = DF.NodeDecode(query, [], cuda)
+    want = testing.query_decode_node_host(node, query)
+    assert 0 < len(want) < n or n == 1
+    for _ in range(2):
+        _assert_batches_equal(route.node_points(node, "r"), want)
+
+
+def test_k8_node_decode_seven_threads_match_host(cuda, decode_octrees):
+    """The client on the card with seven workers, over each region and
+    encoding: the host route's points."""
+    from point_cloud_viewer_tpu_torch import testing
+    from point_cloud_viewer_tpu_torch.query.client import PointCloudClient
+
+    def collect(client, query):
+        got = list(client.stream(query))
+        pos = np.concatenate([b.position for b in got])
+        col = np.concatenate([b.attributes["color"] for b in got])
+        val = np.concatenate([b.attributes["intensity"] for b in got])
+        # Rows that decode to one position (u8 nodes) sorted by colour and
+        # intensity too: the workers' order is not fixed.
+        order = np.lexsort((val, *col.T[::-1], *pos.T[::-1]))
+        return pos[order], col[order], val[order]
+
+    for encoding, octree in decode_octrees.items():
+        for kind in testing.QUERY_MASK_KINDS:
+            query = _decode_query(octree, kind, 1,
+                                  attributes=["color", "intensity"])
+            want = collect(PointCloudClient([octree], num_threads=7,
+                                            device_filter=False), query)
+            client = PointCloudClient([octree], num_threads=7, device=cuda)
+            (got, (card, host)) = _decode_counters(
+                lambda: collect(client, query))
+            assert card > 0
+            for g, w in zip(got, want):
+                assert g.tobytes() == w.tobytes(), (encoding, kind)
+
+
 # --- the x-ray splat (torch ops on the card, no kernel of the port) ---------
 
 

@@ -602,3 +602,451 @@ def test_k8_route_leaves_unions_the_cpu_and_nine_intervals_eager(
     assert k8_on_the_cpu.eager == len(calls)
     for mask, c in zip(got, calls):
         np.testing.assert_array_equal(mask, testing.query_mask_host(*c[:4]))
+
+
+# --- K8 on the client's nodes as stored, rehearsed on the CPU -----------------
+
+# csrc/query_mask.cu ColumnType -> the column's stored dtype.
+_COLUMN_DTYPES = {0: "<f8", 1: "<f4", 2: "u1", 3: "<u2", 4: "<u4", 5: "i1",
+                  6: "<i2", 7: "<i4"}
+
+
+def _model_decode(raw, encoding, fma, cube):
+    """csrc/query_mask.cu EncodedRows on the host: numpy's expression, or
+    with `fma` the host's own native routine (the contracted multiply-add
+    that the card mirrors)."""
+    from point_cloud_viewer_tpu_torch import native
+    from point_cloud_viewer_tpu_torch.ops.codec import PositionEncoding
+
+    enc = raw.view(PositionEncoding(encoding).numpy_dtype).reshape(-1, 3)
+    if fma:
+        return native.decode_positions(enc, cube[:3], cube[3])
+    t = enc.astype(np.float64)
+    if encoding in (1, 2):
+        t = t / (255.0 if encoding == 1 else 65535.0)
+    return t * cube[3] + cube[:3]
+
+
+def _from(address, ctype, count):
+    import ctypes
+
+    return np.ctypeslib.as_array((ctype * count).from_address(address))
+
+
+def _record_decode_mask(recorder, kind, params, k, encoding, fma, node, cols,
+                        n, in_bytes, host_in, dev_in, dev_out, host_out,
+                        scratch, stream):
+    """pcv_query_decode_mask on the CPU: the staged node decoded and
+    classified by the models above, its nonzero codes compacted in row
+    order into host_out's layout."""
+    import ctypes
+
+    params = _from(params, ctypes.c_double, _ext.QUERY_MASK_PARAMS).copy()
+    cube = _from(node, ctypes.c_double, 4).copy()
+    specs = _from(cols, ctypes.c_longlong, max(2 * k, 1)).copy()
+    raw = _from(host_in, ctypes.c_uint8, in_bytes).copy()
+    assert not _from(scratch, ctypes.c_longlong,
+                     DF._decode_scratch(n)).any()
+    bpc = (1, 2, 4, 8)[encoding - 1]
+    pos = _model_decode(raw[:3 * n * bpc], encoding, fma, cube)
+    columns = []
+    for j in range(k):
+        dtype = np.dtype(_COLUMN_DTYPES[int(specs[2 * j])])
+        at = int(specs[2 * j + 1])
+        assert at % 16 == 0 and at >= 3 * n * bpc
+        columns.append(raw[at:at + n * dtype.itemsize].view(dtype)
+                       .astype(np.float64))
+    values = np.concatenate([pos.ravel(), *columns])
+    codes = _model_codes(kind, params, k, values)
+    rows = np.flatnonzero(codes)
+    at_pos, at_rows, at_codes, size = DF._decode_layout(n)
+    out = _from(host_out, ctypes.c_uint8, size)
+    out[:8] = np.array([len(rows)], dtype=np.int64).view(np.uint8)
+    out[at_pos:at_pos + 24 * len(rows)] = pos[rows].view(np.uint8).ravel()
+    out[at_rows:at_rows + 4 * len(rows)] = rows.astype(np.int32).view(
+        np.uint8)
+    out[at_codes:at_codes + len(rows)] = codes[rows]
+    recorder.decoded.append({"kind": kind, "k": k, "encoding": encoding,
+                             "fma": fma, "n": n, "cube": cube,
+                             "types": [int(t) for t in specs[:2 * k:2]]})
+    return 0
+
+
+def _read_node_files(recorder, count, staged, paths, expect, buf0, cap0,
+                     buf1, cap1, out):
+    """pcv_read_node_files on the CPU: the same layout and return codes."""
+    import ctypes
+    import errno
+
+    recorder.reads.append(count)
+    expect = _from(expect, ctypes.c_longlong, count).tolist()
+    out = _from(out, ctypes.c_longlong, 2 * count + 2)
+    offsets, need = DF._layout(expect, staged)
+    out[count:2 * count] = offsets
+    out[2 * count:] = need
+    if need[0] > cap0 or need[1] > cap1:
+        return 1
+    status = 0
+    for i, path in enumerate(paths.split(b"\0")[:count]):
+        try:
+            data = open(path, "rb").read()
+        except FileNotFoundError:
+            out[i] = -1
+            return -errno.ENOENT
+        out[i] = len(data)
+        slot = DF._aligned(expect[i] + 1)
+        if len(data) >= slot:
+            status = 1
+        ctypes.memmove((buf0 if i < staged else buf1) + offsets[i], data,
+                       min(len(data), slot))
+    return status
+
+
+@pytest.fixture
+def node_decode_on_the_cpu(k8_on_the_cpu, monkeypatch):
+    """k8_on_the_cpu with pcv_query_decode_mask recorded too (`decoded`)
+    and pcv_read_node_files read with Python (`reads`: files a call)."""
+    import functools
+
+    k8_on_the_cpu.decoded = []
+    k8_on_the_cpu.reads = []
+    k8_on_the_cpu.pcv_query_decode_mask = functools.partial(
+        _record_decode_mask, k8_on_the_cpu)
+    k8_on_the_cpu.pcv_read_node_files = functools.partial(_read_node_files,
+                                                          k8_on_the_cpu)
+    # _Staging's node buffers on the CPU; _CpuStaging's __init__ leaves
+    # them unset.
+    monkeypatch.setattr(_CpuStaging, "_pair", lambda self, nbytes: (
+        torch.empty(nbytes, dtype=torch.uint8),
+        torch.empty(nbytes, dtype=torch.uint8)), raising=False)
+    monkeypatch.setattr(_CpuStaging, "_zeroed", lambda self, words:
+                        torch.zeros(words, dtype=torch.int64), raising=False)
+    for name in ("node_bytes", "node_rows", "files_bytes"):
+        monkeypatch.setattr(_CpuStaging, name, 0, raising=False)
+    for name in ("host_node", "dev_node", "host_kept", "dev_kept",
+                 "node_view", "kept_view", "host_files", "scratch",
+                 "node_args"):
+        monkeypatch.setattr(_CpuStaging, name, None, raising=False)
+    return k8_on_the_cpu
+
+
+@pytest.fixture(scope="module")
+def decode_octrees(tmp_path_factory):
+    """testing.query_decode_octree in each stored encoding."""
+    return {enc: testing.query_decode_octree(
+        str(tmp_path_factory.mktemp(f"octree_{enc}")), enc)
+        for enc in testing.QUERY_DECODE_RESOLUTIONS}
+
+
+def _decode_query(octree, kind, k, attributes=None):
+    from point_cloud_viewer_tpu_torch.query.point_query import PointQuery
+
+    return PointQuery(
+        attributes=attributes or ["color", "intensity",
+                                  *testing.QUERY_DECODE_COLUMNS],
+        location=testing.query_decode_regions(octree)[kind],
+        filter_intervals=testing.query_decode_intervals(k))
+
+
+def _host_node(octree, query, node_id):
+    """The host route of a node: read_node_batch, the host masks, retain."""
+    batch = octree.points_in_node(node_id, attributes=query.attributes)
+    return query.filter_batch(batch, use_device=False)
+
+
+def _assert_batches_equal(got, want):
+    assert got.position.dtype == want.position.dtype == np.float64
+    assert got.position.tobytes() == want.position.tobytes()
+    assert list(got.attributes) == list(want.attributes)
+    for name, values in want.attributes.items():
+        assert got.attributes[name].dtype == values.dtype, name
+        assert got.attributes[name].shape == values.shape, name
+        assert got.attributes[name].tobytes() == values.tobytes(), name
+
+
+def _decode_counters(fn):
+    """fn() under a profiler session -> (its result, the counters
+    query.decode.card, query.decode.host, query.mask.fused)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from point_cloud_viewer_tpu_torch.utils import progress
+
+    progress.reset_span_totals()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = fn()
+    totals = progress.span_totals()
+    progress.reset_span_totals()
+    return out, tuple(totals.get(name, [0])[0] for name in (
+        "query.decode.card", "query.decode.host", "query.mask.fused"))
+
+
+@pytest.mark.parametrize("k", [0, 1, 8])
+@pytest.mark.parametrize("kind", testing.QUERY_MASK_KINDS)
+@pytest.mark.parametrize("encoding", sorted(testing.QUERY_DECODE_RESOLUTIONS))
+def test_node_decode_matches_the_host_route(node_decode_on_the_cpu,
+                                            decode_octrees, encoding, kind,
+                                            k):
+    """Every node of an octree through NodeDecode (the recorder standing in
+    for pcv_query_decode_mask): the host route's batch to the bit, one call
+    a node with the node's encoding, cube, column types and decode mode,
+    and the counters: the host decodes only OBB and frustum nodes with band
+    rows."""
+    from point_cloud_viewer_tpu_torch.query.device_filter import (
+        _host_decode_fused, node_decode)
+
+    octree = decode_octrees[encoding]
+    query = _decode_query(octree, kind, k)
+    route = node_decode(query, [octree], "cuda")
+    assert route is not None and route.takes(octree, False)
+    assert not route.takes(octree, True)
+    stats = DF.FilterStats()
+
+    def run():
+        return [route.node_points(octree, node_id, stats=stats)
+                for node_id in octree.node_ids]
+
+    got, (card, host, fused) = _decode_counters(run)
+    nodes = len(octree.node_ids)
+    assert fused == card + host == nodes
+    calls = node_decode_on_the_cpu.decoded
+    assert len(calls) == nodes and node_decode_on_the_cpu.calls == []
+    banded = 0
+    for node_id, batch, call in zip(octree.node_ids, got, calls):
+        meta = octree.node_meta(node_id)
+        _assert_batches_equal(batch, _host_node(octree, query, node_id))
+        assert call["n"] == meta.num_points
+        assert call["encoding"] == int(meta.position_encoding)
+        assert call["fma"] == int(_host_decode_fused(meta.position_encoding,
+                                                     meta.num_points))
+        assert call["kind"] == testing.QUERY_MASK_KINDS.index(kind)
+        assert call["k"] == k
+        np.testing.assert_array_equal(call["cube"], [*meta.cube_min,
+                                                     meta.edge_length])
+        assert call["types"] == [
+            DF._K8_COLUMN[octree.attribute_data_types[m]]
+            for m in sorted(query.filter_intervals)]
+    if encoding in ("u8", "u16"):
+        assert {c["fma"] for c in calls} == {0, 1}
+    assert stats.rows == sum(c["n"] for c in calls)
+    if kind == "box":
+        assert host == 0 and stats.uncertain == 0
+    else:
+        assert stats.uncertain > 0
+        banded = host if kind in ("obb", "frustum") else 0
+        assert host == banded and (kind == "web_mercator" or host > 0)
+
+
+def test_node_decode_keeps_no_row_and_every_row(node_decode_on_the_cpu,
+                                                decode_octrees):
+    """A box away from the site keeps no row of a node, a box around the
+    site every row, each with the host route's attributes."""
+    from point_cloud_viewer_tpu_torch.math.geometry import Aabb
+    from point_cloud_viewer_tpu_torch.octree.node_id import NodeId
+    from point_cloud_viewer_tpu_torch.query.device_filter import node_decode
+    from point_cloud_viewer_tpu_torch.query.point_query import PointQuery
+
+    octree = decode_octrees["u16"]
+    lo, hi = octree.root_cube.min, octree.root_cube.max()
+    for box, kept in ((Aabb(hi + 1.0, hi + 2.0), 0),
+                      (Aabb(lo - 1.0, hi + 1.0), 10_004)):
+        query = PointQuery(attributes=["color", "intensity"], location=box,
+                           filter_intervals=testing.query_decode_intervals(0))
+        route = node_decode(query, [octree], "cuda")
+        got = route.node_points(octree, NodeId.root())
+        assert len(got) == kept
+        _assert_batches_equal(got, _host_node(octree, query, NodeId.root()))
+
+
+def test_node_decode_follows_the_hosts_decode(node_decode_on_the_cpu,
+                                              decode_octrees):
+    """With the native library switched off the host decodes u8 and u16
+    nodes with numpy's expression, and the card is asked for it too."""
+    from point_cloud_viewer_tpu_torch import native
+    from point_cloud_viewer_tpu_torch.query.device_filter import node_decode
+
+    octree = decode_octrees["u8"]
+    query = _decode_query(octree, "obb", 1)
+    route = node_decode(query, [octree], "cuda")
+    with native.disabled():
+        for node_id in octree.node_ids:
+            _assert_batches_equal(route.node_points(octree, node_id),
+                                  _host_node(octree, query, node_id))
+    assert {c["fma"] for c in node_decode_on_the_cpu.decoded} == {0}
+
+
+def test_node_decode_route_choice(node_decode_on_the_cpu, decode_octrees,
+                                  tmp_path):
+    """The route takes a card, the four K8 regions, at most 8 intervals on
+    fetched attributes of K8's column types, octrees and nodes not fully
+    inside; the CPU, cell unions, all points, nine intervals, an interval on
+    an attribute not fetched or of another type, and S2 clouds stay on the
+    host's decode."""
+    from point_cloud_viewer_tpu_torch.core.points_batch import PointsBatch
+    from point_cloud_viewer_tpu_torch.math.intervals import ClosedInterval
+    from point_cloud_viewer_tpu_torch.query.device_filter import node_decode
+    from point_cloud_viewer_tpu_torch.query.point_query import PointQuery
+    from point_cloud_viewer_tpu_torch.s2_cells.container import S2Cells
+    from point_cloud_viewer_tpu_torch.s2_cells.splitter import build_s2_cloud
+
+    octree = decode_octrees["f32"]
+    names = ["color", "intensity", *testing.QUERY_DECODE_COLUMNS]
+    for kind in testing.QUERY_MASK_KINDS:
+        assert node_decode(_decode_query(octree, kind, 8), [octree],
+                           "cuda") is not None
+        assert node_decode(_decode_query(octree, kind, 1), [octree],
+                           "cpu") is None
+        assert node_decode(_decode_query(octree, kind, 1), [octree],
+                           None) is None
+    box = testing.query_decode_regions(octree)["box"]
+    nine = {m: ClosedInterval(0.0, 1.0) for m in names[1:]}
+    assert len(nine) == 9
+    pts = octree.points_in_node(octree.node_ids[0], attributes=[]).position
+    union = CellUnion([int(c) for c in PS2.parent(
+        PS2.leaf_cell_ids_from_points(pts[:3]), 12)])
+    for query in (PointQuery(attributes=names, location=union),
+                  PointQuery(attributes=names),
+                  PointQuery(attributes=names, location=box,
+                             filter_intervals=nine),
+                  PointQuery(attributes=["color"], location=box,
+                             filter_intervals={
+                                 "intensity": ClosedInterval(0.0, 1.0)})):
+        assert node_decode(query, [octree], "cuda") is None
+    s2dir = str(tmp_path / "s2")
+    build_s2_cloud(s2dir, PointsBatch(
+        position=pts, attributes={"color": np.zeros((len(pts), 3), np.uint8),
+                                  "intensity": np.zeros(len(pts),
+                                                        np.float32)}))
+    cells = S2Cells.from_directory(s2dir)
+    query = PointQuery(attributes=["color", "intensity"], location=box,
+                       filter_intervals=testing.query_decode_intervals(1))
+    route = node_decode(query, [octree, cells], "cuda")
+    assert route.takes(octree, False)
+    assert not route.takes(octree, True) and not route.takes(cells, False)
+    u64 = PointQuery(attributes=names, location=box, filter_intervals={
+        "a_u64": ClosedInterval(10.0, 90.0)})
+    assert not node_decode(u64, [octree], "cuda").takes(octree, False)
+
+
+@pytest.mark.parametrize("kind", testing.QUERY_MASK_KINDS)
+def test_client_on_the_card_decode_streams_the_host_routes_points(
+        node_decode_on_the_cpu, decode_octrees, kind):
+    """The client on a card (the recorders standing in for K8's entries):
+    the same points as with device_filter=False; every node the route takes
+    is decoded through it, fully inside ones by the host, and the counters
+    add up to the jobs."""
+    from point_cloud_viewer_tpu_torch.math.geometry import Aabb
+    from point_cloud_viewer_tpu_torch.query.client import PointCloudClient
+
+    octree = decode_octrees["u16"]
+    query = _decode_query(octree, kind, 1, attributes=["color", "intensity"])
+    if kind == "box":  # a box around the lowest octant: fully inside nodes
+        lo, hi = octree.root_cube.min, octree.root_cube.max()
+        query.location = location_for(Aabb(lo - 1.0, (lo + hi) / 2 + 1.0))
+
+    def collect(client):
+        got = list(client.stream(query))
+        pos = np.concatenate([b.position for b in got])
+        col = np.concatenate([b.attributes["color"] for b in got])
+        val = np.concatenate([b.attributes["intensity"] for b in got])
+        # Rows that decode to one position (u8 nodes) sorted by colour and
+        # intensity too: the workers' order is not fixed.
+        order = np.lexsort((val, *col.T[::-1], *pos.T[::-1]))
+        return pos[order], col[order], val[order]
+
+    want = collect(PointCloudClient([octree], num_threads=2,
+                                    device_filter=False))
+    client = PointCloudClient([octree], num_threads=2, device="cpu")
+    client.device = torch.device("cuda")
+    got, (card, host, _) = _decode_counters(lambda: collect(client))
+    for g, w in zip(got, want):
+        assert g.tobytes() == w.tobytes()
+    jobs = octree.nodes_in_location_ex(query.location)
+    fully = sum(f for _, f in jobs)
+    assert card + host == len(jobs) > 0
+    assert len(node_decode_on_the_cpu.decoded) == len(jobs) - fully
+    if kind == "box":
+        assert fully > 0 and host == fully
+
+
+def test_k8_decode_layout_matches_the_kernel_source():
+    """The compacting kernel's tile and its output layout are
+    device_filter's."""
+    import re
+
+    src = open(os.path.join(_ext.CSRC, "query_mask.cu")).read()
+    threads = int(re.search(r"kCompactThreads = (\d+);", src).group(1))
+    items = int(re.search(r"kCompactItems = (\d+);", src).group(1))
+    assert threads * items == _ext.QUERY_DECODE_TILE
+    n = 1_000
+    assert DF._decode_layout(n) == (16, 16 + 24 * n, 16 + 28 * n,
+                                    16 + 29 * n)
+    for text in ("out + 16)", "out + 16 + 24 * n)", "out + 16 + 28 * n)"):
+        assert text in src
+    assert DF._decode_scratch(1) == 3
+    assert DF._decode_scratch(_ext.QUERY_DECODE_TILE + 1) == 4
+    assert set(DF._K8_COLUMN.values()) == set(_COLUMN_DTYPES)
+    for data_type, code in DF._K8_COLUMN.items():
+        assert data_type.numpy_dtype == np.dtype(_COLUMN_DTYPES[code])
+
+
+@pytest.mark.parametrize("n", [1, 1_023, 1_025, 20_001])
+@pytest.mark.parametrize("encoding", ["u16", "f32"])
+def test_node_decode_of_synthetic_nodes(node_decode_on_the_cpu, tmp_path,
+                                        encoding, n):
+    """Nodes of n random rows written as node files: the host route's
+    batch, twice on one staging set."""
+    node, query = testing.query_decode_node(str(tmp_path), encoding, n,
+                                            seed=n, share=0.6)
+    route = DF.NodeDecode(query, [], torch.device("cuda"))
+    want = testing.query_decode_node_host(node, query)
+    assert 0 < len(want) < n or n == 1
+    for _ in range(2):
+        _assert_batches_equal(route.node_points(node, "r"), want)
+    assert len(node_decode_on_the_cpu.decoded) == 2
+
+
+def test_node_decode_reads_a_nodes_files_in_one_call(node_decode_on_the_cpu,
+                                                     decode_octrees,
+                                                     tmp_path):
+    """A directory's node is read by one pcv_read_node_files call of all its
+    files (positions, interval columns, the other attributes), and by a
+    second where the staging set's buffers were too small for them (a first
+    node, files that grew); a missing file raises NodeNotFound, as the host
+    route does."""
+    import shutil
+
+    from point_cloud_viewer_tpu_torch.io.node_io import NodeNotFound
+    from point_cloud_viewer_tpu_torch.octree.octree import Octree
+    from point_cloud_viewer_tpu_torch.query.device_filter import node_decode
+
+    octree = decode_octrees["f64"]
+    query = _decode_query(octree, "box", 1)
+    route = node_decode(query, [octree], "cuda")
+    node_id = octree.node_ids[3]
+    route.node_points(octree, node_id)
+    route.node_points(octree, node_id)
+    assert node_decode_on_the_cpu.reads == [2 + 9] * 3
+    copy = str(tmp_path / "copy")
+    shutil.copytree(octree.data_provider.directory, copy)
+    grown = Octree.from_directory(copy)
+    grown.attribute_data_types.update(octree.attribute_data_types)
+    stem = grown.data_provider.stem(str(node_id))
+    for ext, row_bytes in (("xyz", 24), ("rgb", 3), ("intensity", 4)):
+        data = open(stem + "." + ext, "rb").read()
+        with open(stem + "." + ext, "wb") as f:
+            f.write(data + data[:1000 * row_bytes])
+    for name in testing.QUERY_DECODE_COLUMNS:
+        data = open(stem + "." + name, "rb").read()
+        with open(stem + "." + name, "wb") as f:
+            f.write(data + data[:len(data) // grown.node_meta(
+                node_id).num_points * 1000])
+    route = node_decode(query, [grown], "cuda")
+    node_decode_on_the_cpu.reads.clear()
+    got = route.node_points(grown, node_id)
+    assert node_decode_on_the_cpu.reads == [11, 11]
+    _assert_batches_equal(got, _host_node(grown, query, node_id))
+    os.remove(stem + ".rgb")
+    with pytest.raises(NodeNotFound):
+        route.node_points(grown, node_id)
+    with pytest.raises(NodeNotFound):
+        grown.points_in_node(node_id, attributes=query.attributes)
