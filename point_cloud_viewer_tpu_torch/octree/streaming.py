@@ -22,13 +22,23 @@ resumes in the other.
 
 Device pipeline (streaming.py:374-455): one bucket's derivation is kept in
 flight while the host finishes the bucket before it.  On CUDA the upload
-(pinned, non-blocking) and the derivation run on a stream of their own and
-never make the host wait (ops/tree_build.py); an event recorded after the
+(pinned, non-blocking) and the derivation run on a stream of their own
+(one a card for the process, `_pipeline_stream`) and never make the host
+wait (ops/tree_build.py); an event recorded after the
 launches is what `_finish_device_bucket` waits on before it fetches, on
 the current stream, into pinned buffers.  Completion is FIFO, so the bytes
 written and the checkpoint order are those of the sequential order.
 `phase_times` keeps the JAX package's keys, plus `buckets_derived`,
-`bucket_device_wait` and (CUDA) `bucket_device_busy`.
+`bucket_device_wait` and (CUDA) `bucket_device_busy`, `bounds` (PASS 1,
+the span `build.bounds`) and the `encode+write/encode`, `/wait` and
+`/write` of every `_write_levels` call, summed over the buckets and the
+top.
+
+Counters (`utils/progress.count`, recorded while a profiler runs):
+`build.buckets`, the non-empty buckets loaded back from the spill (built
+on the device or on the host, or handed whole to the top pass);
+`build.bucket_points`, the points those loads held; `build.spill_bytes`,
+the bytes appended to the spill files.
 
 Two routes run the buckets one after another, as in the JAX package
 (streaming.py:379, 523-628): the host build (`use_device=False`: native
@@ -56,7 +66,7 @@ from ..core.points_batch import PointsBatch, as_points_batch
 from ..io.node_io import attempt_increasing_rlimit_to_max
 from ..math.geometry import Aabb, Cube
 from ..ops import morton
-from ..utils.progress import timed_phase as _timed_phase
+from ..utils.progress import count, timed_phase as _timed_phase
 from .node_id import MAX_FORMAT_LEVEL, NodeId
 from .builder import (
     BuildResult,
@@ -127,6 +137,7 @@ class _BucketSpill:
                     part = part.astype(dt)
                 with open(self._path(int(b), name), "ab") as f:
                     part.tofile(f)
+                count("build.spill_bytes", part.nbytes)
             self.counts[int(b)] += e - s
 
     def load(self, bucket: int) -> Optional[PointsBatch]:
@@ -137,6 +148,8 @@ class _BucketSpill:
             raw = np.fromfile(self._path(bucket, name), dtype=dt)
             arrays[name] = raw.reshape(-1, dim) if dim > 1 else raw
         position = arrays.pop("position")
+        count("build.buckets")
+        count("build.bucket_points", len(position))
         return PointsBatch(position=position, attributes=arrays)
 
     def delete(self, bucket: int) -> None:
@@ -224,27 +237,29 @@ def build_octree_streaming(
             "provide a re-iterable input (the stream is read twice)"
         )
 
+    # --- PASS 1: the bounding box ------------------------------------------
     if bounding_box is None:
-        if as_points_batch(data) is not None:
-            bounding_box = Aabb.bounding_points(data.position)
-        else:
-            for b in _iter_batches(data):
-                if attributes is not None and bounding_box is None:
-                    # First batch: fail a typo'd attribute name before the
-                    # (potentially hours-long) bbox + spill passes.
-                    missing = [a for a in attributes if a not in b.attributes]
-                    if missing:
-                        raise ValueError(
-                            f"requested attributes not in input: {missing}"
-                        )
-                bb = Aabb.bounding_points(b.position)
+        with _timed_phase(phase_times, "bounds"):
+            if as_points_batch(data) is not None:
+                bounding_box = Aabb.bounding_points(data.position)
+            else:
+                for b in _iter_batches(data):
+                    if attributes is not None and bounding_box is None:
+                        # First batch: fail a typo'd attribute name before the
+                        # (potentially hours-long) bbox + spill passes.
+                        missing = [a for a in attributes if a not in b.attributes]
+                        if missing:
+                            raise ValueError(
+                                f"requested attributes not in input: {missing}"
+                            )
+                    bb = Aabb.bounding_points(b.position)
+                    if bounding_box is None:
+                        bounding_box = bb
+                    else:
+                        bounding_box.grow(bb.mins)
+                        bounding_box.grow(bb.maxs)
                 if bounding_box is None:
-                    bounding_box = bb
-                else:
-                    bounding_box.grow(bb.mins)
-                    bounding_box.grow(bb.maxs)
-            if bounding_box is None:
-                bounding_box = Aabb.zero()
+                    bounding_box = Aabb.zero()
     root_cube = Cube.bounding(bounding_box)
 
     # total_cap past the u64 budget (21) = a deep build: fat level-21
@@ -391,7 +406,7 @@ def build_octree_streaming(
     # bucket's derivation in flight ahead of the bucket being finished, on
     # one stream for every bucket's upload + derivation (None on the CPU).
     pipeline_device = use_device and total_cap == depth_cap
-    stream = (torch.cuda.Stream(dev)
+    stream = (_pipeline_stream(dev)
               if pipeline_device and dev.type == "cuda" else None)
     inflight: List[Tuple[int, PointsBatch, tuple]] = []
 
@@ -466,7 +481,8 @@ def build_octree_streaming(
     # --- shallow top: levels b_levels..0 ------------------------------------
     with _timed_phase(phase_times, "top"):
         top_nodes = _finish_top(
-            output_directory, top_inputs, root_cube, resolution, depth_cap
+            output_directory, top_inputs, root_cube, resolution, depth_cap,
+            phase_times,
         )
     recorded.extend(top_nodes)
 
@@ -582,7 +598,7 @@ def _build_bucket_subtree(
         )
         nodes = _write_levels(
             output_directory, final_nodes, batch, order, root_cube,
-            resolution,
+            resolution, phase_times=phase_times,
         )
         nodes.extend(deep_nodes)
         return batch.take(order[residual_idx]), nodes
@@ -613,12 +629,28 @@ def _build_bucket_subtree(
             )
     with _timed_phase(phase_times, "bucket_encode_write"):
         nodes = _write_levels(
-            output_directory, final_nodes, batch, order, root_cube, resolution
+            output_directory, final_nodes, batch, order, root_cube,
+            resolution, phase_times=phase_times,
         )
     return batch.take(order[residual_idx]), nodes
 
 
 # --- the device bucket pipeline (mirrors streaming.py:631-746) -------------
+
+# The pipeline's stream, one a card for the process.  The caching allocator
+# keeps a freed block for the stream it was made on; with a new stream a
+# build (torch.cuda.Stream hands out the next of a pool of 32), the first
+# bucket of every build allocated its device memory anew, and those
+# allocations held the host in the bucket's dispatch.
+_PIPELINE_STREAMS: Dict[str, "torch.cuda.Stream"] = {}
+
+
+def _pipeline_stream(device: torch.device) -> "torch.cuda.Stream":
+    key = str(torch.device("cuda", torch.cuda.current_device())
+              if device.index is None else device)
+    if key not in _PIPELINE_STREAMS:
+        _PIPELINE_STREAMS[key] = torch.cuda.Stream(device)
+    return _PIPELINE_STREAMS[key]
 
 
 def _dispatch_device_bucket(
@@ -708,7 +740,7 @@ def _finish_device_bucket(
     with _timed_phase(phase_times, "bucket_encode_write"):
         nodes = _write_levels(
             output_directory, final_nodes, batch, order, root_cube,
-            resolution,
+            resolution, phase_times=phase_times,
         )
     return batch.take(order[residual_idx]), nodes
 
@@ -781,6 +813,7 @@ def _finish_top(
     root_cube: Cube,
     resolution: float,
     depth_cap: int,
+    phase_times: Optional[dict] = None,
 ) -> List[Tuple[NodeId, int]]:
     """Finish the shallow levels: inputs are (node_level, points) pairs —
     bucket residuals at the bucket level and whole shallow-leaf point sets.
@@ -811,5 +844,6 @@ def _finish_top(
         )
     final_nodes = _subsample_bottom_up(level_nodes)
     return _write_levels(
-        output_directory, final_nodes, top, order, root_cube, resolution
+        output_directory, final_nodes, top, order, root_cube, resolution,
+        phase_times=phase_times,
     )

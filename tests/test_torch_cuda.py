@@ -704,6 +704,28 @@ def test_streaming_build_on_card_matches_cpu(cuda, tmp_path, monkeypatch,
         assert (card / name).read_bytes() == (cpu / name).read_bytes(), name
 
 
+def test_streaming_builds_reuse_the_pipeline_stream_and_its_memory(
+        cuda, tmp_path):
+    """Back-to-back streamed builds derive on one stream, so once a build
+    has run the caching allocator serves the next from its freed blocks:
+    no new device segment (cudaMalloc) in a later build."""
+    from point_cloud_viewer_tpu_torch.octree import streaming
+
+    batch = _streaming_batch(seed=4)
+
+    def build(i):
+        streaming.build_octree_streaming(str(tmp_path / f"b{i}"), 0.001,
+                                         batch, bucket_levels=1, device=cuda)
+        torch.cuda.synchronize()
+        return torch.cuda.memory_stats()["segment.all.allocated"]
+
+    build(0)
+    made = build(1)
+    assert build(2) == made
+    here = torch.device("cuda", torch.cuda.current_device())
+    assert streaming._pipeline_stream(cuda) is streaming._pipeline_stream(here)
+
+
 # --- deep builds: re-rooted sub-builds at depth 12-19 ---------------------
 
 
